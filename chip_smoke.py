@@ -3,22 +3,42 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path -- OFDM_CHIRP (512-FFT, 30 carriers, no
-pilots), DQPSK, LDPC R1/2, 17 dB AWGN, presynced receiver -- at a batch of
-16,384 frames, through the entry points a user calls (``tx_frame``,
-``add_noise_active``, ``rx_frame``), and checks it:
+Drives the port's two paths through the entry points a user calls, and
+checks them:
+
+* slice 1, the presynced path -- OFDM_CHIRP (512-FFT, 30 carriers, no
+  pilots), DQPSK, LDPC R1/2, 17 dB AWGN -- at a batch of 16,384 frames
+  (``tx_frame``, ``add_noise_active``, ``rx_frame``);
+* slice 2, Schmidl-Cox acquisition -- the default 512-FFT pilot plan,
+  DQPSK, LDPC R1/2, 17 dB AWGN, each frame at an unknown position in an
+  18,856-sample buffer -- at 32 buffers of 512 frames (``tx_cox_frame``,
+  ``add_noise_active``, ``decode_cox_batch``: detect, cut at the detected
+  LTS, pilot-tracked demodulation at the detected CFO, decode).
+
+Phases:
 
 1. prints the card's name and power limit; no CUDA device -> exit 1;
-2. builds the LDPC min-sum kernel from ``projectultra_tpu_torch/csrc``;
-3. holds the kernel against the plain PyTorch decoder on the card (bits,
-   ok flags and iteration counts equal on every lane) on the golden
+2. builds both kernels from ``projectultra_tpu_torch/csrc`` (one nvcc per
+   source, started together);
+3. holds the LDPC kernel against the plain PyTorch decoder on the card
+   (bits, ok flags and iteration counts equal on every lane) on the golden
    codewords of all five rates and on noisy waterfall batches;
 4. holds TX on the card against the reference golden waveform;
-5. runs the main path: decode rate >= 0.99 with exact info bits on every
-   decoded frame, the kernel's launch counter grown, and the kernel equal
-   to the plain decoder on the same LLRs;
-6. times the main path (per step, per stage, and the device's idle share
-   under ``torch.profiler``) and the kernel against the plain decoder.
+5. runs the slice-1 path: decode rate >= 0.99 with exact info bits on
+   every decoded frame, the LDPC kernel's launch counter grown, and the
+   kernel equal to the plain decoder on the same LLRs; times it (per step,
+   per stage, the device's idle share under ``torch.profiler``) and the
+   kernel against the plain decoder;
+6. holds the Schmidl-Cox window kernel against its plain version at
+   stride 1 and 8 (rtol 2e-4, atol 2e-3) on random analytic signals and on
+   Cox buffers, and on one 600,000-sample buffer against float64 (relative
+   error < 1e-4); detection through the kernel against detection through
+   the plain version (found and lts_start identical on every lane);
+7. runs the Cox path: ok rate >= 0.99 with exact info bits on ok lanes
+   over 32 buffers, both kernels' launch counters grown, a 30 Hz CFO
+   buffer at 20 dB by the same gate, and 64 lanes equal to the CPU path;
+   times it (frames/s, per stage, idle share) and the window kernel
+   against its plain version.
 
 Any failure raises and the script exits non-zero.  The last line of its
 output is one JSON object naming the device.  It imports nothing of jax.
@@ -30,19 +50,24 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from projectultra_tpu_torch import CodeRate, Modulation, get_code, require_cuda
+from projectultra_tpu_torch import (CodeRate, ModemConfig, Modulation,
+                                    get_code, require_cuda)
 from projectultra_tpu_torch.ofdm import modulator as M
 from projectultra_tpu_torch.ofdm import pipeline as P
-from projectultra_tpu_torch.ops import cuda_ldpc
+from projectultra_tpu_torch.ops import cuda_build, cuda_ldpc, cuda_sc
 from projectultra_tpu_torch.ops import ldpc as ldpc_ops
+from projectultra_tpu_torch.ops.sc_windows import sc_windows_plain
 from projectultra_tpu_torch.sim import watterson as W
+from projectultra_tpu_torch.sync import schmidl_cox as SC
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "golden"
@@ -59,8 +84,20 @@ WATERFALL_BATCH = 4096
 GOLDEN_NAMES = {CodeRate.R1_4: "R1_4", CodeRate.R1_2: "R1_2",
                 CodeRate.R2_3: "R2_3", CodeRate.R3_4: "R3_4",
                 CodeRate.R5_6: "R5_6"}
-KERNEL_SOURCE = "projectultra_tpu_torch/csrc/ldpc_minsum.cu"
-KERNEL_REPLACES = "projectultra_tpu/ops/pallas_ldpc.py:102"
+KERNELS = {  # name -> (wrapper module, TPU kernel it replaces)
+    "ldpc_minsum": (cuda_ldpc, "projectultra_tpu/ops/pallas_ldpc.py:102"),
+    "sc_windows": (cuda_sc, "projectultra_tpu/ops/pallas_sync.py:44"),
+}
+
+COX_CFG = ModemConfig()  # the default 512-FFT pilot plan (OFDM_COX)
+COX_BATCH = 512          # frames per buffer, as the JAX bench runs Cox
+COX_BUFFERS = 32
+COX_LEAD, COX_TAIL = 1504, 1024
+COX_T = 18856
+COX_CFO_HZ, COX_CFO_SNR_DB = 30.0, 20.0
+HALF = COX_CFG.fft_size // 2
+CP = COX_CFG.cyclic_prefix
+WINDOW_RTOL, WINDOW_ATOL = 2e-4, 2e-3   # tests/test_pallas_sync.py
 
 
 class SmokeFailure(RuntimeError):
@@ -148,21 +185,22 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def time_decoders(graph, llrs: torch.Tensor, kernel_reps: int,
-                  plain_reps: int) -> tuple[float, float]:
+def time_pair(kernel, plain, kernel_reps: int,
+              plain_reps: int) -> tuple[float, float]:
     """(kernel ms, plain ms), measured in turns plain, kernel, kernel,
     plain; each the mean of its two turns."""
-    def kernel():
-        cuda_ldpc.decode_cuda(graph, llrs)
-
-    def plain():
-        ldpc_ops.decode_plain(graph, llrs)
-
     p1 = time_ms(plain, plain_reps)
     k1 = time_ms(kernel, kernel_reps)
     k2 = time_ms(kernel, kernel_reps)
     p2 = time_ms(plain, plain_reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def time_decoders(graph, llrs: torch.Tensor, kernel_reps: int,
+                  plain_reps: int) -> tuple[float, float]:
+    return time_pair(lambda: cuda_ldpc.decode_cuda(graph, llrs),
+                     lambda: ldpc_ops.decode_plain(graph, llrs),
+                     kernel_reps, plain_reps)
 
 
 def profile_busy_ms(fn, reps: int) -> float:
@@ -195,11 +233,22 @@ def profile_busy_ms(fn, reps: int) -> float:
 # Phases
 # ---------------------------------------------------------------------------
 
+def source_of(name: str) -> str:
+    return str(KERNELS[name][0].SOURCE.relative_to(ROOT))
+
+
 def phase_build() -> None:
-    cuda_ldpc.load_library()
-    print(f"kernel build: {cuda_ldpc.build_seconds!r} s "
-          f"({KERNEL_SOURCE}, nvcc sm_90a)", flush=True)
-    for report in sorted(cuda_ldpc.BUILD_DIR.glob("*.ptxas.txt")):
+    """Both kernel libraries, one nvcc each, started together."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        for job in [pool.submit(mod.load_library)
+                    for mod, _ in KERNELS.values()]:
+            job.result()
+    for name, (mod, _) in KERNELS.items():
+        print(f"kernel build {name}: {mod.LIBRARY.build_seconds!r} s "
+              f"({source_of(name)}, nvcc sm_90a)", flush=True)
+    print(f"kernel builds, wall: {time.perf_counter() - t0!r} s", flush=True)
+    for report in sorted(cuda_build.BUILD_DIR.glob("*.ptxas.txt")):
         print(f"ptxas ({report.name}):\n{report.read_text().strip()}",
               flush=True)
 
@@ -339,6 +388,243 @@ def phase_timing(dev: torch.device, card: str, deint: torch.Tensor):
     return k_ms, p_ms
 
 
+# ---------------------------------------------------------------------------
+# Slice 2: Schmidl-Cox acquisition
+# ---------------------------------------------------------------------------
+
+def cox_tx(dev: torch.device, seed: int):
+    """(info [B, k] uint8, tx [B, 18,856]) of the bench's Cox frames."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    info = torch.randint(0, 2, (COX_BATCH, get_code(RATE).k), generator=g,
+                         device=dev, dtype=torch.uint8)
+    tx = P.tx_cox_frame(COX_CFG, MOD, RATE, info, lead=COX_LEAD,
+                        tail=COX_TAIL)
+    require(tuple(tx.shape) == (COX_BATCH, COX_T),
+            f"Cox frames have shape {tuple(tx.shape)}")
+    return info, tx
+
+
+def noisy_buffers(tx: torch.Tensor, g: torch.Generator, n: int,
+                  snr_db: float = SNR_DB) -> list:
+    return [W.add_noise_active(tx, snr_db, g) for _ in range(n)]
+
+
+def window_shapes(T: int) -> dict:
+    """(stride, offset, G) of the two windowed forms the Cox path runs:
+    detect_preamble's stride-8 grid and sc_metric's every offset."""
+    return {8: (8, CP, SC.search_grid_size(COX_CFG, T)),
+            1: (1, CP, T - COX_CFG.fft_size - CP + 1)}
+
+
+def compare_windows(a: torch.Tensor, stride: int, offset: int, G: int,
+                    label: str) -> float:
+    """Kernel vs plain window sums on the same analytic signal; returns the
+    max abs error (raises unless within rtol 2e-4, atol 2e-3)."""
+    got = cuda_sc.sc_windows_cuda(a, HALF, stride, offset, G)
+    want = sc_windows_plain(a, HALF, stride, offset, G)
+    torch.cuda.synchronize()
+    errs, rels = [], []
+    for x, y, name in zip(got, want, ("P", "R1", "R2")):
+        d = (x - y).abs()
+        big = y.abs() >= 1e-3 * float(y.abs().max())
+        errs.append(float(d.max()))
+        rels.append(float((d[big] / y.abs()[big]).max()))
+        require(bool(torch.isclose(x, y, rtol=WINDOW_RTOL,
+                                   atol=WINDOW_ATOL).all()),
+                f"window kernel {name} disagrees with plain on {label}")
+    print(f"window kernel vs plain [{label}] B={a.shape[0]} T={a.shape[1]} "
+          f"stride={stride} G={G}: max_abs_err P/R1/R2={errs!r} "
+          f"max_rel_err={rels!r} (rtol {WINDOW_RTOL}, atol {WINDOW_ATOL})",
+          flush=True)
+    return max(errs)
+
+
+def phase_window_parity(dev: torch.device, rx: torch.Tensor) -> float:
+    """Returns the max abs error on the Cox buffers at stride 8 (the shape
+    detect_preamble gives the kernel)."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    noise = torch.randn((64, COX_T), generator=g, device=dev)
+    cox = SC.analytic_signal(rx)
+    err8 = 0.0
+    for name, a in (("random", SC.analytic_signal(noise)), ("Cox 17 dB", cox)):
+        for stride, (st, off, G) in window_shapes(COX_T).items():
+            err = compare_windows(a, st, off, G, name)
+            if name != "random" and stride == 8:
+                err8 = err
+    compare_windows(SC.analytic_signal(noise[:, :9001]), 8, CP,
+                    SC.search_grid_size(COX_CFG, 9001), "random, ragged T")
+
+    # Block stability: one 600,000-sample buffer of positive samples
+    # against float64 sums (tests/test_long_buffer_precision.py:20-36).
+    T = 600_000
+    x = (np.random.default_rng(1).standard_normal(T).astype(np.float32)
+         + 0.5) ** 2
+    x64 = x.astype(np.float64)
+    ones = np.ones(HALF)
+    e = np.convolve(x64 * x64, ones, mode="valid")
+    refs = (np.convolve(x64[:-HALF] * x64[HALF:], ones, mode="valid"),
+            e[:T - 2 * HALF + 1], e[HALF:])
+    a = torch.from_numpy(x).to(dev).to(torch.complex64)[None]
+    for label, fn in (("kernel", cuda_sc.sc_windows_cuda),
+                      ("plain", sc_windows_plain)):
+        outs = fn(a, HALF, 1, 0, T - 2 * HALF + 1)
+        rel = [float(np.max(np.abs(o[0].real.double().cpu().numpy() - r)
+                            / r)) for o, r in zip(outs, refs)]
+        print(f"long buffer T={T} stride 1 w=2*{HALF} [{label}]: relative "
+              f"error vs float64 P/R1/R2={rel!r} (limit 1e-4)", flush=True)
+        require(max(rel) < 1e-4, f"{label} window sums drift on a long buffer")
+    return err8
+
+
+def phase_detection_parity(dev: torch.device, rx: torch.Tensor) -> None:
+    """detect_preamble through the kernel against detect_preamble through
+    the plain window sums on the same buffers."""
+    det_k = SC.detect_preamble(COX_CFG, rx)
+    with mock.patch.object(SC, "sc_windows", sc_windows_plain):
+        det_p = SC.detect_preamble(COX_CFG, rx)
+    torch.cuda.synchronize()
+    found_eq = bool(torch.equal(det_k["found"], det_p["found"]))
+    lts_eq = bool(torch.equal(det_k["lts_start"], det_p["lts_start"]))
+    sync_diff = int((det_k["sync_off"] != det_p["sync_off"]).sum())
+    cfo_diff = float((det_k["cfo_hz"] - det_p["cfo_hz"]).abs().max())
+    print(f"detection kernel vs plain B={rx.shape[0]} {SNR_DB} dB: "
+          f"found_equal={found_eq} lts_start_equal={lts_eq} "
+          f"sync_off_lanes_differing={sync_diff} max_cfo_diff_hz={cfo_diff!r} "
+          f"found_rate={float(det_k['found'].float().mean())!r}", flush=True)
+    require(found_eq and lts_eq,
+            "detection through the kernel differs from the plain version")
+
+
+def check_cox(outs: list, info: torch.Tensor, label: str) -> None:
+    """The bench's gate over the buffers' decode_cox_batch results."""
+    oks = torch.stack([ok for _, ok, _, _ in outs])
+    ok_rate = float(oks.float().mean())
+    worst = float(oks.float().mean(-1).min())
+    bits_exact = all(bool((out == info)[ok].all()) for out, ok, _, _ in outs)
+    shapes_ok = all(tuple(out.shape) == tuple(info.shape)
+                    and out.dtype == torch.uint8 for out, _, _, _ in outs)
+    finite = all(bool(torch.isfinite(det["cfo_hz"]).all())
+                 for _, _, _, det in outs)
+    print(f"Cox path [{label}] {len(outs)} x B={info.shape[0]}: "
+          f"ok_rate={ok_rate!r} worst_buffer={worst!r} "
+          f"bits_exact_on_ok={bits_exact}", flush=True)
+    require(shapes_ok and finite, f"Cox outputs malformed on {label}")
+    require(ok_rate >= DECODE_GATE, f"Cox ok rate {ok_rate} < {DECODE_GATE}")
+    require(bits_exact, f"decoded info bits differ on an ok lane ({label})")
+
+
+def decode_cox(rx: torch.Tensor):
+    return SC.decode_cox_batch(COX_CFG, MOD, RATE, rx)
+
+
+def phase_cox_path(dev: torch.device) -> dict:
+    """The Cox path over COX_BUFFERS fresh 17 dB buffers; returns each
+    kernel's launches in that run."""
+    info, tx = cox_tx(dev, 11)
+    rx_all = noisy_buffers(tx, torch.Generator(device=dev).manual_seed(13),
+                           COX_BUFFERS)
+    torch.cuda.synchronize()
+
+    cuda_sc.launches = cuda_ldpc.launches = 0
+    outs = [decode_cox(rx) for rx in rx_all]
+    torch.cuda.synchronize()
+    launches = {"sc_windows": cuda_sc.launches,
+                "ldpc_minsum": cuda_ldpc.launches}
+    print(f"Cox path kernel launches: {launches}", flush=True)
+    require(all(n > 0 for n in launches.values()),
+            "the Cox path did not launch both kernels")
+    check_cox(outs, info, f"{SNR_DB} dB")
+
+    # 64 lanes of the first buffer through the CPU path: equal bits on the
+    # lanes both decode, and the same detections.
+    cpu = decode_cox(rx_all[0][:64].cpu())
+    out, ok, _, det = outs[0]
+    both = ok[:64].cpu() & cpu[1]
+    same_lts = bool(torch.equal(det["lts_start"][:64].cpu(),
+                                cpu[3]["lts_start"]))
+    print(f"Cox path card vs CPU on 64 lanes: decoded_both="
+          f"{int(both.sum())} lts_start_equal={same_lts}", flush=True)
+    require(same_lts and bool(torch.equal(out[:64].cpu()[both],
+                                          cpu[0][both])),
+            "the Cox path on the card differs from the CPU path")
+
+    # A true 30 Hz CFO at 20 dB.
+    g = torch.Generator(device=dev).manual_seed(17)
+    rx = W.add_noise_active(W.apply_cfo_hilbert(tx, COX_CFO_HZ),
+                            COX_CFO_SNR_DB, g)
+    res = decode_cox(rx)
+    cfo = res[3]["cfo_hz"]
+    print(f"Cox path with {COX_CFO_HZ} Hz CFO: detected cfo mean "
+          f"{float(cfo.mean())!r} Hz, min {float(cfo.min())!r}, max "
+          f"{float(cfo.max())!r}", flush=True)
+    check_cox([res], info, f"{COX_CFO_HZ} Hz CFO, {COX_CFO_SNR_DB} dB")
+    return launches
+
+
+def cox_stages(rx_all: list) -> dict:
+    """Stream time of each stage of the Cox step, ms per buffer."""
+    names = ["detect", "slice+demod", "deinterleave+decode"]
+    totals = dict.fromkeys(names, 0.0)
+    pipe = P.pipeline_for(COX_CFG, MOD, RATE, 1, rx_all[0].device)
+    for rx in rx_all:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        det = SC.detect_preamble(COX_CFG, rx)
+        ev[1].record()
+        llrs = SC.demodulate_detected(COX_CFG, MOD, rx, det)
+        ev[2].record()
+        pipe.decode(llrs)
+        ev[3].record()
+        torch.cuda.synchronize()
+        for i, name in enumerate(names):
+            totals[name] += ev[i].elapsed_time(ev[i + 1])
+    return {name: t / len(rx_all) for name, t in totals.items()}
+
+
+def phase_cox_timing(dev: torch.device, card: str):
+    """Cox frames/s (noise untimed, as the bench), stages, idle share, and
+    the window kernel against its plain version; returns the kernel's and
+    the plain version's ms at stride 8."""
+    info, tx = cox_tx(dev, 12)
+    g = torch.Generator(device=dev).manual_seed(14)
+    decode_cox(tx)  # warm-up: per-device tables
+    ms = float("inf")
+    for rep in range(2):
+        rx_all = noisy_buffers(tx, g, COX_BUFFERS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        oks = torch.stack([decode_cox(rx)[1] for rx in rx_all]).cpu()
+        rep_ms = (time.perf_counter() - t0) / COX_BUFFERS * 1e3
+        ms = min(ms, rep_ms)
+        print(f"Cox path repeat {rep}: {COX_BATCH / rep_ms * 1e3!r} frames/s "
+              f"({rep_ms!r} ms per buffer of {COX_BATCH}, {COX_BUFFERS} "
+              f"buffers, ok_rate {float(oks.float().mean())!r}) on {card}",
+              flush=True)
+    print(f"Cox path: best {COX_BATCH / ms * 1e3!r} frames/s ({ms!r} ms per "
+          f"buffer) on {card}", flush=True)
+    print(f"Cox path stages: {cox_stages(rx_all[:8])} (ms per buffer of "
+          f"{COX_BATCH}, CUDA events, 8 buffers) on {card}", flush=True)
+    busy = profile_busy_ms(lambda: decode_cox(rx_all[0]), 5)
+    print(f"Cox path device busy {busy!r} ms per buffer (union of kernel "
+          f"intervals, profiled) of {ms!r} ms unprofiled: idle share "
+          f"{1.0 - busy / ms!r} on {card}", flush=True)
+
+    a = SC.analytic_signal(rx_all[0])
+    times = {}
+    for stride, (st, off, G) in window_shapes(COX_T).items():
+        def kernel():
+            cuda_sc.sc_windows_cuda(a, HALF, st, off, G)
+
+        def plain():
+            sc_windows_plain(a, HALF, st, off, G)
+
+        times[stride] = time_pair(kernel, plain, 50, 10)
+        print(f"window sums B={COX_BATCH} T={COX_T} stride {stride} G={G}: "
+              f"kernel {times[stride][0]!r} ms, plain {times[stride][1]!r} ms "
+              f"on {card}", flush=True)
+    return times[8]
+
+
 def main() -> None:
     t0 = time.perf_counter()
     card = card_line()
@@ -350,16 +636,30 @@ def main() -> None:
     phase_build()
     phase_kernel_parity(dev)
     phase_tx_golden(dev)
-    launches, deint, err = phase_main_path(dev)
-    k_ms, p_ms = phase_timing(dev, card, deint)
+    ldpc_launches, deint, ldpc_err = phase_main_path(dev)
+    ldpc_ms, ldpc_plain_ms = phase_timing(dev, card, deint)
+
+    _, tx = cox_tx(dev, 10)
+    rx = noisy_buffers(tx, torch.Generator(device=dev).manual_seed(20), 1)[0]
+    sc_err = phase_window_parity(dev, rx)
+    phase_detection_parity(dev, rx)
+    cox_launches = phase_cox_path(dev)
+    sc_ms, sc_plain_ms = phase_cox_timing(dev, card)
 
     require("jax" not in sys.modules, "the run imported jax")
     print(f"total: {time.perf_counter() - t0!r} s", flush=True)
     print(card, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "ldpc_minsum", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}]}), flush=True)
+    # launches: each kernel's count in the run of its own slice's path
+    # (the LDPC kernel's in the slice-1 path; both counts of the Cox path
+    # are printed above).
+    rows = [("ldpc_minsum", ldpc_launches, ldpc_err, ldpc_ms, ldpc_plain_ms),
+            ("sc_windows", cox_launches["sc_windows"], sc_err, sc_ms,
+             sc_plain_ms)]
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": source_of(name),
+         "replaces": KERNELS[name][1], "launches": launches,
+         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        for name, launches, err, ms, plain_ms in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

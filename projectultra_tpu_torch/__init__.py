@@ -7,21 +7,22 @@ is tested against.  Host-side numpy modules that never import jax
 ``utils.mt19937``) are shared with the JAX package, not copied.  The port
 never imports jax.
 
-The LDPC min-sum decoder runs as a hand-written CUDA kernel for Hopper
-(``csrc/ldpc_minsum.cu``) on CUDA tensors; the plain PyTorch versions beside
-each kernel are test oracles and the CPU path.
+On CUDA tensors two hand-written kernels for Hopper run: the LDPC min-sum
+decoder (``csrc/ldpc_minsum.cu``) and the Schmidl-Cox window sums of
+preamble acquisition (``csrc/sc_windows.cu``); the plain PyTorch versions
+beside each kernel are test oracles and the CPU path.
 
-The shared enums ``CodeRate`` and ``Modulation`` and the code table lookup
-``get_code`` are re-exported here, so a caller of the port needs no import
-of the JAX package.
+The shared ``ModemConfig``, the enums ``CodeRate`` and ``Modulation`` and
+the code table lookup ``get_code`` are re-exported here, so a caller of
+the port needs no import of the JAX package.
 """
 
-from projectultra_tpu.config import CodeRate, Modulation
+from projectultra_tpu.config import CodeRate, ModemConfig, Modulation
 from projectultra_tpu.fec.ldpc import get_code
 
 from .device import pin_float32, require_cuda
 
 pin_float32()
 
-__all__ = ["CodeRate", "Modulation", "get_code", "pin_float32",
-           "require_cuda"]
+__all__ = ["CodeRate", "ModemConfig", "Modulation", "get_code",
+           "pin_float32", "require_cuda"]

@@ -134,6 +134,39 @@ def generate_training(config: ModemConfig, count: int) -> np.ndarray:
     return _training_np(config, count)
 
 
+@functools.lru_cache(maxsize=None)
+def generate_preamble(config: ModemConfig) -> np.ndarray:
+    """Schmidl-Cox preamble (modulator.cpp:479-531), numpy:
+    silence(N+CP) + 4x STS + 2x LTS; constant per config.
+
+    Quirk kept from the reference: the STS is mixed ONCE (t in [0, N+CP))
+    and the identical buffer is repeated 4x; the LTS is mixed once at
+    t in [N+CP, 2(N+CP)) and repeated 2x.  The mixer therefore advances
+    only 2 symbol lengths over the whole preamble, and ``modulate``
+    continues from there (``preamble_data_t_offset``)."""
+    N, cp = config.fft_size, config.cyclic_prefix
+    plen = N + cp
+    scale = config.output_scale
+    fc = config.center_freq + config.tx_cfo_hz
+
+    def sym_to_real(fd: np.ndarray, t0: int) -> np.ndarray:
+        td = np.fft.ifft(fd).astype(np.complex64)
+        one = np.concatenate([td[-cp:], td])
+        osc = mixer_ops.osc_fixed(fc, config.sample_rate, plen, offset=t0)
+        return ((one * osc).real * scale).astype(np.float32)
+
+    sts = sym_to_real(carriers_mod.sts_freq_domain(config), 0)
+    lts = sym_to_real(carriers_mod.lts_freq_domain(config), plen)
+    return np.concatenate([np.zeros(plen, np.float32)] + [sts] * 4 + [lts] * 2)
+
+
+def preamble_data_t_offset(config: ModemConfig) -> int:
+    """Mixer sample index at which ``modulate`` continues after the
+    preamble (the mixer advances only one STS and one LTS; see
+    ``generate_preamble``)."""
+    return 2 * (config.fft_size + config.cyclic_prefix)
+
+
 class Modulator(nn.Module):
     """Data-symbol modulator for S symbols starting at mixer time
     ``t_offset``.  Buffers: ``synth_r``/``synth_i`` [S, C, L] and, for

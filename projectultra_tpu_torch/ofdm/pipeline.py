@@ -1,7 +1,9 @@
 """End-to-end OFDM frame pipeline (port of projectultra_tpu/ofdm/pipeline.py).
 
 LDPC encode -> channel interleave -> OFDM modulate -> (channel) ->
-presynced demodulate -> deinterleave -> LDPC decode, batched over frames.
+presynced demodulate -> deinterleave -> LDPC decode, batched over frames,
+on no-pilot plans (the differential fast path) and pilot plans (the
+pilot-tracking scan) alike.
 ``FramePipeline`` holds every constant table as a buffer; the plain
 functions ``tx_frame``/``rx_frame`` keep the JAX signatures over a
 per-(config, mod, rate, n_codewords, device) pipeline cache.
@@ -128,22 +130,33 @@ class FramePipeline(nn.Module):
         training = self.training_wave.expand(B, self.training_wave.shape[0])
         return torch.cat([training, data], dim=-1)
 
-    def deinterleaved_llrs(self, samples: torch.Tensor, cfo_hz=0.0,
-                           initial_phase=0.0) -> torch.Tensor:
-        """[B, T] aligned passband -> the [B*ncw, n] LDPC decoder input."""
-        llrs, _ = self.demodulator(samples, cfo_hz, initial_phase)
+    def deinterleave(self, llrs: torch.Tensor) -> torch.Tensor:
+        """[B, nbits] demodulated LLRs -> the [B*ncw, n] LDPC decoder
+        input (the exact index gather ``blocks[:, perm]``)."""
         n = self.code.n
         blocks = llrs[:, :self.n_codewords * n].reshape(-1, n)
         return blocks[:, self.interleave_perm].contiguous()
 
+    def decode(self, llrs: torch.Tensor):
+        """[B, nbits] demodulated LLRs -> (info_bits [B, k*ncw] uint8, ok [B]
+        bool, iters [B, ncw] int32): deinterleave, then LDPC decode."""
+        B, ncw, k = llrs.shape[0], self.n_codewords, self.code.k
+        llr_total, ok, iters = ldpc_ops.decode_totals(self.code,
+                                                      self.deinterleave(llrs))
+        info = (llr_total[:, :k] < 0).to(torch.uint8).reshape(B, ncw * k)
+        return info, ok.reshape(B, ncw).all(-1), iters.reshape(B, ncw)
+
+    def deinterleaved_llrs(self, samples: torch.Tensor, cfo_hz=0.0,
+                           initial_phase=0.0) -> torch.Tensor:
+        """[B, T] aligned passband -> the [B*ncw, n] LDPC decoder input."""
+        llrs, _ = self.demodulator(samples, cfo_hz, initial_phase)
+        return self.deinterleave(llrs)
+
     def rx(self, samples: torch.Tensor, cfo_hz=0.0, initial_phase=0.0):
         """[B, T] aligned passband -> (info_bits [B, k*ncw] uint8, ok [B]
         bool, iters [B, ncw] int32)."""
-        B, ncw, k = samples.shape[0], self.n_codewords, self.code.k
-        deint = self.deinterleaved_llrs(samples, cfo_hz, initial_phase)
-        llr_total, ok, iters = ldpc_ops.decode_totals(self.code, deint)
-        info = (llr_total[:, :k] < 0).to(torch.uint8).reshape(B, ncw * k)
-        return info, ok.reshape(B, ncw).all(-1), iters.reshape(B, ncw)
+        llrs, _ = self.demodulator(samples, cfo_hz, initial_phase)
+        return self.decode(llrs)
 
 
 @functools.lru_cache(maxsize=None)
@@ -156,6 +169,29 @@ def tx_frame(config: ModemConfig, mod: Modulation, rate: CodeRate,
              info_bits: torch.Tensor) -> torch.Tensor:
     """[B, k] info bits -> [B, T] passband samples (training + data)."""
     return pipeline_for(config, mod, rate, 1, info_bits.device).tx(info_bits)
+
+
+@functools.lru_cache(maxsize=None)
+def _preamble_on(config: ModemConfig, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(mod_mod.generate_preamble(config)).to(device)
+
+
+def tx_cox_frame(config: ModemConfig, mod: Modulation, rate: CodeRate,
+                 info_bits: torch.Tensor, lead: int = 0,
+                 tail: int = 0) -> torch.Tensor:
+    """[B, k] info bits -> [B, lead + 7*(N+CP) + S*symbol + tail] float32
+    Schmidl-Cox frames as the JAX bench builds them (bench.py:304-321):
+    ``lead`` zeros, the preamble, one interleaved codeword modulated from
+    ``preamble_data_t_offset``, ``tail`` zeros."""
+    B, dev = info_bits.shape[0], info_bits.device
+    pipe = pipeline_for(config, mod, rate, 1, dev)
+    cw = ldpc_ops.encode_with(pipe.code, info_bits)[:, pipe.interleave_inv]
+    data = mod_mod.modulate(config, mod, cw,
+                            t_offset=mod_mod.preamble_data_t_offset(config))
+    pre = _preamble_on(config, dev)
+    return torch.cat([torch.zeros((B, lead), device=dev),
+                      pre.expand(B, pre.shape[0]), data,
+                      torch.zeros((B, tail), device=dev)], dim=-1)
 
 
 def rx_frame(config: ModemConfig, mod: Modulation, rate: CodeRate,

@@ -1,12 +1,11 @@
 """Wrapper of the hand-written Hopper LDPC min-sum kernel
 (``csrc/ldpc_minsum.cu``), the port of ``ops/pallas_ldpc.py::_kernel``.
 
-The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface and loaded with ``ctypes``.  The build runs at
-first use, into ``projectultra_tpu_torch/build/``, named by a hash of the
-source and the compiler command, so an edited source is rebuilt and an
-unchanged one is reused.  A failed build raises; nothing falls back to
-the plain PyTorch decoder.
+The source is built at first use by ``cuda_build``:
+``nvcc`` for ``sm_90a`` into a plain-C shared library loaded with
+``ctypes``, compiled with ``--fmad=false`` so that the kernel's additions
+round exactly as the plain decoder's.  A failed build raises; nothing falls
+back to the plain PyTorch decoder.
 
 The kernel launches on PyTorch's current stream, does not synchronise and
 allocates nothing: this wrapper allocates the outputs with ``torch.empty``.
@@ -16,95 +15,43 @@ allocates nothing: this wrapper allocates the outputs with ``torch.empty``.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-import time
 from pathlib import Path
 
 import torch
 
 from projectultra_tpu.fec.ldpc import DEFAULT_MAX_ITERS
 
+from . import cuda_build
 from .ldpc import trap_escape_llrs
 
-PACKAGE_DIR = Path(__file__).resolve().parent.parent
-SOURCE = PACKAGE_DIR / "csrc" / "ldpc_minsum.cu"
-BUILD_DIR = PACKAGE_DIR / "build"
+SOURCE = cuda_build.CSRC_DIR / "ldpc_minsum.cu"
+BUILD_DIR = cuda_build.BUILD_DIR
+FLAGS = ("--fmad=false",)
 
 #: Kernel launches made through decode_cuda (a run resets it to 0 to show
 #: that its path went through the kernel).
 launches = 0
-#: Seconds the last build (or cache lookup) of the library took.
-build_seconds = 0.0
-
-_lib = None
-_lib_lock = threading.Lock()
 
 
-def _find_nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
-                 "/usr/local/cuda"):
-        if cand and (Path(cand) / "bin" / "nvcc").is_file():
-            return str(Path(cand) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the LDPC kernel "
-                           "is built from csrc/ldpc_minsum.cu at first use")
-    return found
+def _bind(lib: ctypes.CDLL) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.ldpc_minsum_decode.argtypes = [vp] * 7 + [ci] * 6 + [vp]
+    lib.ldpc_minsum_decode.restype = ci
+    lib.ldpc_minsum_error_string.argtypes = [ci]
+    lib.ldpc_minsum_error_string.restype = ctypes.c_char_p
+
+
+LIBRARY = cuda_build.KernelLibrary(SOURCE, FLAGS, _bind)
 
 
 def nvcc_command(nvcc: str, source: Path, output: Path) -> list[str]:
     """The compiler command for the kernel library."""
-    return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-            "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
-            "-shared", "-Xcompiler", "-fPIC",
-            "-o", str(output), str(source)]
-
-
-def _build() -> Path:
-    nvcc = _find_nvcc()
-    probe = nvcc_command("nvcc", SOURCE, Path("lib.so"))
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(probe).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libldpc_minsum_{digest}.so"
-    if out.is_file():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(nvcc_command(nvcc, SOURCE, Path(tmp)),
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
-                               f"{SOURCE}:\n{proc.stdout}\n{proc.stderr}")
-        (BUILD_DIR / f"{out.stem}.ptxas.txt").write_text(proc.stderr)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+    return cuda_build.nvcc_command(nvcc, source, output, FLAGS)
 
 
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; raises on failure."""
-    global _lib, build_seconds
-    with _lib_lock:
-        if _lib is None:
-            t0 = time.perf_counter()
-            lib = ctypes.CDLL(str(_build()))
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.ldpc_minsum_decode.argtypes = [vp] * 7 + [ci] * 6 + [vp]
-            lib.ldpc_minsum_decode.restype = ci
-            lib.ldpc_minsum_error_string.argtypes = [ci]
-            lib.ldpc_minsum_error_string.restype = ctypes.c_char_p
-            build_seconds = time.perf_counter() - t0
-            _lib = lib
-        return _lib
+    return LIBRARY.load()
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,

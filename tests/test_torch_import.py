@@ -35,7 +35,12 @@ def test_port_modules_found():
     for name in ("projectultra_tpu_torch", "projectultra_tpu_torch.ops.ldpc",
                  "projectultra_tpu_torch.ops.cuda_ldpc",
                  "projectultra_tpu_torch.ofdm.pipeline",
-                 "projectultra_tpu_torch.sim.watterson"):
+                 "projectultra_tpu_torch.sim.watterson",
+                 "projectultra_tpu_torch.sync",
+                 "projectultra_tpu_torch.sync.schmidl_cox",
+                 "projectultra_tpu_torch.ops.sc_windows",
+                 "projectultra_tpu_torch.ops.cuda_sc",
+                 "projectultra_tpu_torch.ops.cuda_build"):
         assert name in mods
 
 

@@ -249,6 +249,6 @@ def test_lts_channel_estimate_with_pilots_matches_jax():
 def test_unported_branches_raise():
     x = torch.zeros((1, 10 * PILOT_CFG.symbol_duration))
     with pytest.raises(NotImplementedError):
-        TD.demodulate_presynced(PILOT_CFG, Modulation.QPSK, x, 0.0, 0.0, 2, 5)
+        TD.demodulate_presynced(PILOT_CFG, Modulation.QAM64, x, 0.0, 0.0, 2, 5)
     with pytest.raises(NotImplementedError):
         TD.demodulate_presynced(CHIRP_CFG, Modulation.QAM16, x, 0.0, 0.0, 2, 5)

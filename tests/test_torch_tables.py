@@ -1,7 +1,8 @@
 """The port's constant-table builders against the JAX package's.
 
 Every numpy table the PyTorch port re-homes (interleaver permutations,
-oscillators, synthesis/analysis tensors, the LDPC per-variable edge table)
+oscillators, synthesis/analysis tensors, the LDPC per-variable edge table,
+the Schmidl-Cox preamble and LTS template, the pilot interpolation table)
 must be array-equal to the builder it replaces, and the interleaver must
 match the reference's golden dump.
 """
@@ -22,6 +23,7 @@ from projectultra_tpu.ofdm import modulator as JM  # noqa: E402
 from projectultra_tpu.ofdm import pipeline as JP  # noqa: E402
 from projectultra_tpu.ops import ldpc as jax_ldpc_ops  # noqa: E402
 from projectultra_tpu.ops import mixer as jax_mixer  # noqa: E402
+from projectultra_tpu.sync import schmidl_cox as jax_sc  # noqa: E402
 
 from projectultra_tpu_torch.fec import interleave as T_interleave  # noqa: E402
 from projectultra_tpu_torch.ofdm import demodulator as TD  # noqa: E402
@@ -29,9 +31,11 @@ from projectultra_tpu_torch.ofdm import modulator as TM  # noqa: E402
 from projectultra_tpu_torch.ofdm import pipeline as TP  # noqa: E402
 from projectultra_tpu_torch.ops import ldpc as T_ldpc  # noqa: E402
 from projectultra_tpu_torch.ops import mixer as T_mixer  # noqa: E402
+from projectultra_tpu_torch.sync import schmidl_cox as T_sc  # noqa: E402
 
 CHIRP_CFG = JP.chirp_ofdm_config()
 PILOT_CFG = ModemConfig()  # 512/30 with pilots
+WIDE_CFG = ModemConfig(fft_size=1024, num_carriers=59, pilot_spacing=4)
 RATES = [CodeRate.R1_4, CodeRate.R1_2, CodeRate.R2_3, CodeRate.R3_4,
          CodeRate.R5_6]
 
@@ -154,3 +158,29 @@ def test_pipeline_buffers_hold_the_tables():
     assert {"training_wave", "interleave_inv", "interleave_perm",
             "code.row_vars", "modulator.synth_i",
             "demodulator.lts_wr"} <= names
+
+
+@pytest.mark.parametrize("config", [PILOT_CFG, CHIRP_CFG, WIDE_CFG,
+                                    PILOT_CFG.replace(tx_cfo_hz=12.5)])
+def test_preamble_matches_jax(config):
+    ours = TM.generate_preamble(config)
+    np.testing.assert_array_equal(ours, JM.generate_preamble(config))
+    plen = config.fft_size + config.cyclic_prefix
+    assert ours.dtype == np.float32 and ours.shape == (7 * plen,)
+    assert TM.preamble_data_t_offset(config) \
+        == JM.preamble_data_t_offset(config) == 2 * plen
+
+
+@pytest.mark.parametrize("config", [PILOT_CFG, WIDE_CFG])
+def test_lts_passband_template_matches_jax(config):
+    np.testing.assert_array_equal(T_sc.lts_passband_template(config),
+                                  jax_sc.lts_passband_template(config))
+
+
+@pytest.mark.parametrize("config", [PILOT_CFG, WIDE_CFG,
+                                    ModemConfig(num_carriers=31),
+                                    ModemConfig(pilot_spacing=3)])
+def test_interp_arrays_match_jax(config):
+    for a, b in zip(TD._interp_arrays(config), JD._interp_arrays(config)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
