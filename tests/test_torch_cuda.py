@@ -15,6 +15,12 @@ tolerance of tests/test_pallas_sync.py; the kernel sums in another order)
 at stride 1 and 8, on a ragged length, and detection through the kernel
 identical to detection through the plain version.  The acquisition-
 inclusive Cox step goes through both kernels and never synchronises.
+
+Chirp acquisition, MC-DPSK and the Watterson channel (plain PyTorch on the
+card): detection on the card equals the CPU path (success and positions
+identical, cfo within 1e-3 Hz); the bench's chirp step goes through the
+LDPC kernel and never synchronises; OFDM_CHIRP decodes behind a detected
+chirp; ``watterson_with`` on the card equals the CPU on the same normals.
 """
 
 import os
@@ -34,7 +40,9 @@ from projectultra_tpu_torch.ofdm import pipeline as TP  # noqa: E402
 from projectultra_tpu_torch.ops import cuda_ldpc, cuda_sc  # noqa: E402
 from projectultra_tpu_torch.ops import ldpc as T  # noqa: E402
 from projectultra_tpu_torch.ops import sc_windows as TSW  # noqa: E402
+from projectultra_tpu_torch.psk import mc_dpsk as TMC  # noqa: E402
 from projectultra_tpu_torch.sim import watterson as TW  # noqa: E402
+from projectultra_tpu_torch.sync import chirp as TC  # noqa: E402
 from projectultra_tpu_torch.sync import schmidl_cox as TSC  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -303,3 +311,119 @@ def test_cox_step_never_synchronises(dev):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(ok.all()) and torch.equal(out, info)
+
+
+# ---------------------------------------------------------------------------
+# Chirp acquisition, MC-DPSK, OFDM behind a chirp, the Watterson channel
+# ---------------------------------------------------------------------------
+
+MC10 = TMC.level10()
+CC = MC10.chirp_config()
+DET_KEYS = ("success", "up_chirp_start", "down_chirp_start",
+            "first_strong_up", "next_up_start")
+
+
+def _chirp_buffers(dev, B, snr_db=5.0, cfo=0.0, seed=9):
+    """The bench's chirp frames (T = 83,808) through AWGN on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    info = torch.randint(0, 2, (B, ldpc.get_code(CodeRate.R1_4).k),
+                         generator=g, device=dev, dtype=torch.uint8)
+    tx = TMC.tx_chirp_frame(MC10, CodeRate.R1_4, info)
+    if cfo:
+        tx = TW.apply_cfo_hilbert(tx, cfo)
+    return info, TW.add_noise_active(tx, snr_db, g)
+
+
+def test_decimation_on_the_card_is_float32(dev):
+    """cuDNN convolutions default to TF32 (~1e-3 relative); with the
+    package's pins the card's decimation stays within 1e-5 of the CPU's."""
+    assert torch.backends.cudnn.allow_tf32 is False
+    x = torch.randn((16, 83808), generator=torch.Generator().manual_seed(2))
+    got = TC._decimate(CC, x.to(dev)).cpu()
+    ref = TC._decimate(CC, x)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_chirp_detection_on_the_card_equals_the_cpu(dev):
+    _, rx = _chirp_buffers(dev, 16, cfo=20.0)
+    det = TC.detect_dual_chirp(CC, rx)
+    ref = TC.detect_dual_chirp(CC, rx.cpu())
+    for key in DET_KEYS:
+        assert torch.equal(det[key].cpu(), ref[key]), key
+    torch.testing.assert_close(det["cfo_hz"].cpu(), ref["cfo_hz"], rtol=0,
+                               atol=1e-3)
+    assert det["success"].all()
+    assert float((det["cfo_hz"] - 20.0).abs().max()) < 2.0
+
+
+def test_chirp_step_goes_through_the_ldpc_kernel(dev):
+    info, rx = _chirp_buffers(dev, 64)
+    before = cuda_ldpc.launches
+    out, ok, _, det = TMC.decode_chirp_batch(MC10, CodeRate.R1_4, rx)
+    assert cuda_ldpc.launches == before + 1
+    assert float(ok.float().mean()) >= 0.99
+    assert torch.equal(out[ok], info[ok])
+    cpu = TMC.decode_chirp_batch(MC10, CodeRate.R1_4, rx.cpu())
+    both = ok.cpu() & cpu[1]
+    assert torch.equal(out.cpu()[both], cpu[0][both])
+
+
+def test_chirp_step_never_synchronises(dev):
+    """detect -> gather -> CFO-corrected demodulation -> decode enqueue
+    without a host-device synchronisation once the per-device tables
+    exist."""
+    info, rx = _chirp_buffers(dev, 64, cfo=12.0)
+
+    def step():
+        return TMC.decode_chirp_batch(MC10, CodeRate.R1_4, rx)
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, ok, _, _ = step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(ok.all()) and torch.equal(out, info)
+
+
+def test_ofdm_after_chirp_on_the_card(dev):
+    cfg = TP.chirp_ofdm_config()
+    g = torch.Generator(device=dev).manual_seed(12)
+    info = torch.randint(0, 2, (32, ldpc.get_code(CodeRate.R1_2).k),
+                         generator=g, device=dev, dtype=torch.uint8)
+    chirp = torch.from_numpy(TC.generate(CC)).to(dev)
+    tx = torch.cat([torch.zeros((32, TMC.LEAD), device=dev),
+                    chirp.expand(32, chirp.shape[0]),
+                    TP.tx_frame(cfg, Modulation.DQPSK, CodeRate.R1_2, info),
+                    torch.zeros((32, TMC.TAIL), device=dev)], dim=-1)
+    rx = TW.add_noise_active(TW.apply_cfo_hilbert(tx, 30.0), 17.0, g)
+    before = cuda_ldpc.launches
+    det = TC.detect_dual_chirp(CC, rx)
+    tr = TC.training_start(CC, det["down_chirp_start"])
+    phase = TC.initial_cfo_phase(CC, det["cfo_hz"], tr)
+    span = TC.frame_spans(rx, tr, TP.frame_samples(cfg, Modulation.DQPSK))
+    out, ok, _ = TP.rx_frame(cfg, Modulation.DQPSK, CodeRate.R1_2, span,
+                             det["cfo_hz"], phase)
+    assert cuda_ldpc.launches > before
+    assert bool((ok & det["success"]).all()) and torch.equal(out, info)
+    assert float((det["cfo_hz"] - 30.0).abs().max()) < 2.0
+
+
+@pytest.mark.parametrize("preset", ["moderate", "flutter"])
+def test_watterson_with_on_the_card_equals_the_cpu(dev, preset):
+    cfg = TW.HARNESS_PRESETS[preset](10.0)
+    B, T = 8, 83808
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((B, T), generator=g, device=dev)
+    fade = torch.randn((2, B, 2, T), generator=g, device=dev)
+    awgn = torch.randn((B, T), generator=g, device=dev)
+    taps = TW.rayleigh_taps_with(cfg, fade)
+    ref_taps = TW.rayleigh_taps_with(cfg, fade.cpu())
+    assert bool(torch.isfinite(taps).all())
+    rms = float(ref_taps.abs().pow(2).mean().sqrt())
+    torch.testing.assert_close(taps.cpu(), ref_taps, rtol=1e-4,
+                               atol=1e-4 * rms)
+    out = TW.watterson_with(x, cfg, fade, awgn)
+    ref = TW.watterson_with(x.cpu(), cfg, fade.cpu(), awgn.cpu())
+    assert float((out.cpu() - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
