@@ -64,6 +64,19 @@ Phases:
     finite flutter run over the whole buffer), the channel output against
     the CPU, and the MC-DPSK ok rate through it (printed, not gated).
 
+Beside the timings, every kernel is timed at each shape its paths give it
+(LDPC: R1/2 17 dB B = 16,384, the R1/2 sigma 0.62 waterfall batch of
+16,384 with its mean iterations, a Cox buffer B = 512, the chirp cell's
+R1/4 B = 256; window sums: strides 8 and 1 on a Cox buffer) and printed
+with its bound -- the larger of its bytes over 3.35 TB/s and its float32
+operations over 67 TFLOP/s, counted on the run's own data -- the bound's
+basis and the share of the bound the kernel reaches.  There a kernel's
+time is its device time per launch under ``torch.profiler`` (without the
+wrapper's host overhead, which dominates a small batch's call time); the
+call time is printed beside it.  The ``kernels`` line's ``ms`` and
+``plain_ms`` are both call times (CUDA events around back-to-back calls,
+wrapper included), at the main path's shape of each kernel.
+
 Any failure raises and the script exits non-zero.  The last line of its
 output is one JSON object naming the device.  It imports nothing of jax.
 """
@@ -85,6 +98,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from projectultra_tpu_torch import (CodeRate, ModemConfig, Modulation,
                                     get_code, require_cuda)
+from projectultra_tpu_torch.fec.ldpc import DEFAULT_MAX_ITERS
 from projectultra_tpu_torch.ofdm import modulator as M
 from projectultra_tpu_torch.ofdm import pipeline as P
 from projectultra_tpu_torch.ops import cuda_build, cuda_ldpc, cuda_sc
@@ -110,6 +124,19 @@ WATERFALL_BATCH = 4096
 GOLDEN_NAMES = {CodeRate.R1_4: "R1_4", CodeRate.R1_2: "R1_2",
                 CodeRate.R2_3: "R2_3", CodeRate.R3_4: "R3_4",
                 CodeRate.R5_6: "R5_6"}
+# The card's published peaks (H100 SXM, 700 W): the bound of a kernel is
+# the larger of its bytes over the memory rate and its operations over the
+# float32 rate outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+# float32 operations per edge and iteration of the min-sum decoder: v2c
+# (sub, 2 clamps), two-minima update (abs, 2 compares, 3 selects), c2v
+# (select, sign, scale), the variable sum's add and the syndrome's
+# compare and xor.
+LDPC_OPS_PER_EDGE = 14
+# float32 operations per sample of the window pre-reduction: energy (2 mul,
+# add, accumulate) and correlation (4 mul, 2 add, 2 accumulate).
+SC_OPS_PER_SAMPLE = 12
 KERNELS = {  # name -> (wrapper module, TPU kernel it replaces)
     "ldpc_minsum": (cuda_ldpc, "projectultra_tpu/ops/pallas_ldpc.py:102"),
     "sc_windows": (cuda_sc, "projectultra_tpu/ops/pallas_sync.py:44"),
@@ -209,6 +236,73 @@ def compare_decoders(rate: CodeRate, llrs: torch.Tensor, label: str) -> float:
 
 
 # ---------------------------------------------------------------------------
+# Bounds: the least time the card could take for a kernel's work
+# ---------------------------------------------------------------------------
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the larger of the two times."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ldpc_bound(graph, ok: torch.Tensor, iters: torch.Tensor):
+    """The decoder's bound on this run's data: LLRs read once, totals, ok
+    and iters written once; LDPC_OPS_PER_EDGE per edge for every iteration
+    each lane ran (iters + 1 for a converged lane, max_iters otherwise).
+    Returns (ms, basis, mean iterations run)."""
+    B = ok.shape[0]
+    passes = torch.where(ok, iters + 1, iters).double()
+    edges = int(graph.row_mask.sum())
+    n_bytes = B * graph.n * 4 * 2 + B * (1 + 4)
+    ms, by = bound(n_bytes, float(passes.sum()) * edges * LDPC_OPS_PER_EDGE)
+    return ms, by, float(passes.mean())
+
+
+def sc_bound(B: int, half: int, stride: int, G: int):
+    """The window sums' bound: the span of samples the G outputs need, read
+    once, P, R1 and R2 written once; SC_OPS_PER_SAMPLE per sample and
+    4 * half/stride adds per output (the block-grid sums)."""
+    span = stride * (G - 1) + 2 * half
+    n_bytes = B * span * 8 + B * G * (8 + 4 + 4)
+    n_ops = B * (span * SC_OPS_PER_SAMPLE + G * 4 * (half // stride))
+    return bound(n_bytes, n_ops)
+
+
+#: (kernel, shape, kernel ms, bound ms, basis) of every timed shape.
+SHAPES: list = []
+
+
+def report_shape(name: str, shape: str, fn, reps: int, bound_ms: float,
+                 by: str, card: str) -> float:
+    """Times fn's kernel on the device (profiler) and its whole call
+    (CUDA events), prints both beside the bound; returns the kernel ms."""
+    ms = device_ms(fn, reps, f"{name}_kernel")
+    call_ms = time_ms(fn, reps)
+    SHAPES.append((name, shape, ms, bound_ms, by))
+    print(f"kernel {name} [{shape}]: {ms!r} ms on the device ({call_ms!r} ms "
+          f"a call with the wrapper), bound {bound_ms!r} ms (by {by}), share "
+          f"of bound {bound_ms / ms!r} on {card}", flush=True)
+    return ms
+
+
+def time_ldpc_shape(label: str, rate: CodeRate, llrs: torch.Tensor,
+                    card: str, reps: int = 20) -> tuple[float, float, str]:
+    """Times the kernel on llrs and reports it against its bound; returns
+    (kernel ms, bound ms, basis)."""
+    graph = ldpc_ops.graph_for(get_code(rate), llrs.device)
+    _, ok, iters = cuda_ldpc.decode_cuda(graph, llrs)
+    bound_ms, by, passes = ldpc_bound(graph, ok, iters)
+    ms = report_shape("ldpc_minsum", f"{label}, B={llrs.shape[0]}, "
+                      f"{passes!r} iterations run per lane on average, "
+                      f"{float((~ok).float().mean())!r} of the lanes "
+                      f"unconverged after {DEFAULT_MAX_ITERS}",
+                      lambda: cuda_ldpc.decode_cuda(graph, llrs), reps,
+                      bound_ms, by, card)
+    return ms, bound_ms, by
+
+
+# ---------------------------------------------------------------------------
 # Timing
 # ---------------------------------------------------------------------------
 
@@ -224,6 +318,27 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, kernel: str, tries: int = 3) -> float:
+    """Device milliseconds per launch of the kernels whose names hold
+    ``kernel``, under ``torch.profiler`` over reps calls of fn (the kernel's
+    own time, without the host's launch overhead): the mean over the
+    launches the profiler recorded.  It can miss some of a run's device
+    events, or all of them; a run with none is repeated."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == DeviceType.CUDA and kernel in e.name]
+        if us:
+            return sum(us) / len(us) / 1000.0
+    raise SmokeFailure(f"the profiler saw no {kernel} on the device in "
+                       f"{tries} runs")
 
 
 def time_pair(kernel, plain, kernel_reps: int,
@@ -421,12 +536,16 @@ def phase_timing(dev: torch.device, card: str, deint: torch.Tensor):
     graph = ldpc_ops.graph_for(code, dev)
     k_ms, p_ms = time_decoders(graph, deint, kernel_reps=20, plain_reps=5)
     print(f"decode at 17 dB LLRs B={deint.shape[0]}: kernel {k_ms!r} ms, "
-          f"plain {p_ms!r} ms on {card}", flush=True)
+          f"plain {p_ms!r} ms (calls, CUDA events) on {card}", flush=True)
+    _, bound_ms, by = time_ldpc_shape("R1/2 17 dB main path", RATE, deint,
+                                      card)
     wf = torch.from_numpy(waterfall_llrs(RATE, 0.62, BATCH)).to(dev)
     wk_ms, wp_ms = time_decoders(graph, wf, kernel_reps=5, plain_reps=2)
     print(f"decode at waterfall R1_2 sigma=0.62 B={BATCH}: kernel "
-          f"{wk_ms!r} ms, plain {wp_ms!r} ms on {card}", flush=True)
-    return k_ms, p_ms
+          f"{wk_ms!r} ms, plain {wp_ms!r} ms (calls, CUDA events) on {card}",
+          flush=True)
+    time_ldpc_shape("R1/2 waterfall sigma=0.62", RATE, wf, card, reps=5)
+    return k_ms, p_ms, bound_ms, by
 
 
 # ---------------------------------------------------------------------------
@@ -623,9 +742,10 @@ def cox_stages(rx_all: list) -> dict:
 
 
 def phase_cox_timing(dev: torch.device, card: str):
-    """Cox frames/s (noise untimed, as the bench), stages, idle share, and
-    the window kernel against its plain version; returns the kernel's and
-    the plain version's ms at stride 8."""
+    """Cox frames/s (noise untimed, as the bench), stages, idle share, the
+    window kernel against its plain version and its bound at strides 8 and
+    1, and the LDPC kernel on a Cox buffer's LLRs; returns (kernel ms, plain
+    ms, bound ms, basis) of the window kernel at stride 8."""
     info, tx = cox_tx(dev, 12)
     g = torch.Generator(device=dev).manual_seed(14)
     decode_cox(tx)  # warm-up: per-device tables
@@ -662,8 +782,20 @@ def phase_cox_timing(dev: torch.device, card: str):
         times[stride] = time_pair(kernel, plain, 50, 10)
         print(f"window sums B={COX_BATCH} T={COX_T} stride {stride} G={G}: "
               f"kernel {times[stride][0]!r} ms, plain {times[stride][1]!r} ms "
-              f"on {card}", flush=True)
-    return times[8]
+              f"(calls, CUDA events) on {card}", flush=True)
+        bound_ms, by = sc_bound(COX_BATCH, HALF, st, G)
+        report_shape("sc_windows", f"Cox buffer, B={COX_BATCH}, T={COX_T}, "
+                     f"stride {stride}, G={G}", kernel,
+                     50 if stride == 8 else 10, bound_ms, by, card)
+        if stride == 8:
+            sc8 = (*times[8], bound_ms, by)
+
+    pipe = P.pipeline_for(COX_CFG, MOD, RATE, 1, dev)
+    det = SC.detect_preamble(COX_CFG, rx_all[0])
+    llrs = pipe.deinterleave(SC.demodulate_detected(COX_CFG, MOD, rx_all[0],
+                                                    det))
+    time_ldpc_shape("R1/2 17 dB Cox buffer", RATE, llrs.contiguous(), card)
+    return sc8
 
 
 # ---------------------------------------------------------------------------
@@ -822,7 +954,9 @@ def phase_chirp_ldpc(dev: torch.device, card: str, rx: torch.Tensor):
     graph = ldpc_ops.graph_for(get_code(CHIRP_RATE), dev)
     k_ms, p_ms = time_decoders(graph, llrs, kernel_reps=20, plain_reps=5)
     print(f"decode at the chirp cell's R1/4 5 dB LLRs B={llrs.shape[0]}: "
-          f"kernel {k_ms!r} ms, plain {p_ms!r} ms on {card}", flush=True)
+          f"kernel {k_ms!r} ms, plain {p_ms!r} ms (calls, CUDA events) on "
+          f"{card}", flush=True)
+    time_ldpc_shape("R1/4 5 dB chirp cell", CHIRP_RATE, llrs, card)
     return err, k_ms, p_ms
 
 
@@ -935,14 +1069,15 @@ def main() -> None:
     phase_kernel_parity(dev)
     phase_tx_golden(dev)
     ldpc_launches, deint, ldpc_err = phase_main_path(dev)
-    ldpc_ms, ldpc_plain_ms = phase_timing(dev, card, deint)
+    ldpc_ms, ldpc_plain_ms, ldpc_bound_ms, ldpc_by = phase_timing(dev, card,
+                                                                  deint)
 
     _, tx = cox_tx(dev, 10)
     rx = noisy_buffers(tx, torch.Generator(device=dev).manual_seed(20), 1)[0]
     sc_err = phase_window_parity(dev, rx)
     phase_detection_parity(dev, rx)
     cox_launches = phase_cox_path(dev)
-    sc_ms, sc_plain_ms = phase_cox_timing(dev, card)
+    sc_ms, sc_plain_ms, sc_bound_ms, sc_by = phase_cox_timing(dev, card)
 
     _, tx = chirp_tx(dev, 30)
     phase_chirp_detection(noisy_buffers(
@@ -953,20 +1088,32 @@ def main() -> None:
     phase_ofdm_after_chirp(dev)
     phase_fading(dev)
 
-    require("jax" not in sys.modules, "the run imported jax")
+    require(not any(m == "jax" or m.startswith("jax.")
+                    or m == "projectultra_tpu"
+                    or m.startswith("projectultra_tpu.") for m in sys.modules),
+            "the run imported jax or the JAX package")
     print(f"total: {time.perf_counter() - t0!r} s", flush=True)
+    print("kernel shapes (kernel ms, bound ms, basis, share of bound):",
+          flush=True)
+    for name, shape, ms, bound_ms, by in SHAPES:
+        print(f"  {name} [{shape}]: {ms!r} ms, bound {bound_ms!r} ms ({by}), "
+              f"share {bound_ms / ms!r}", flush=True)
     print(card, flush=True)
     # launches: each kernel's count in the run of its own slice's path
     # (the LDPC kernel's in the slice-1 path; the counts of the Cox and
-    # chirp paths are printed above).
-    rows = [("ldpc_minsum", ldpc_launches, ldpc_err, ldpc_ms, ldpc_plain_ms),
+    # chirp paths are printed above).  ms and bound_ms at that path's shape;
+    # no single PyTorch call computes either function (library_ms null).
+    rows = [("ldpc_minsum", ldpc_launches, ldpc_err, ldpc_ms, ldpc_plain_ms,
+             ldpc_bound_ms, ldpc_by),
             ("sc_windows", cox_launches["sc_windows"], sc_err, sc_ms,
-             sc_plain_ms)]
+             sc_plain_ms, sc_bound_ms, sc_by)]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source_of(name),
          "replaces": KERNELS[name][1], "launches": launches,
-         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        for name, launches, err, ms, plain_ms in rows]}), flush=True)
+         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
+        for name, launches, err, ms, plain_ms, bound_ms, by in rows]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -31,9 +31,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from projectultra_tpu.config import ModemConfig, Modulation, is_differential
-from projectultra_tpu.ofdm import carriers as carriers_mod
-
+from ..config import ModemConfig, Modulation, is_differential
+from . import carriers as carriers_mod
 from ..ops import demap as demap_ops
 from ..ops import mixer as mixer_ops
 

@@ -16,10 +16,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from projectultra_tpu.config import ModemConfig, Modulation, bits_per_symbol
-from projectultra_tpu.ofdm import carriers as carriers_mod
-from projectultra_tpu.ofdm import constellations as con
-
+from ..config import ModemConfig, Modulation, bits_per_symbol
+from . import carriers as carriers_mod
+from . import constellations as con
 from ..ops import mixer as mixer_ops
 
 

@@ -19,11 +19,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from projectultra_tpu.config import (ModemConfig, Modulation, CodeRate,
-                                     bits_per_symbol)
-from projectultra_tpu.fec import ldpc
-from projectultra_tpu.ofdm import carriers as carriers_mod
-
+from ..config import CodeRate, ModemConfig, Modulation, bits_per_symbol
+from ..fec import ldpc
+from . import carriers as carriers_mod
 from ..fec.interleave import channel_interleaver
 from ..ops import ldpc as ldpc_ops
 from . import demodulator as demod_mod

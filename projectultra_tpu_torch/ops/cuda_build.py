@@ -13,6 +13,7 @@ version.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -22,6 +23,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Callable
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -101,3 +104,15 @@ class KernelLibrary:
                 self.build_seconds = time.perf_counter() - t0
                 self._lib = lib
             return self._lib
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return _sm_count(index)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count

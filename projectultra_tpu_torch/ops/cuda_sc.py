@@ -11,7 +11,10 @@ signal is a column slice of the Hilbert transform's [B, n_fft] output, and
 a contiguous copy would cost one more pass over it).  It launches on
 PyTorch's current stream, does not synchronise and allocates nothing: this
 wrapper allocates the outputs with ``torch.empty``.  ``launches`` counts
-the kernel launches made through ``sc_windows_cuda``.
+the kernel launches made through ``sc_windows_cuda``.  Rows the kernel
+cannot read as 16-byte pairs of samples (an odd row stride, an unaligned
+base) are first copied into rows of even length.  Each block computes
+512 outputs of one row.
 """
 
 from __future__ import annotations
@@ -54,6 +57,26 @@ def load_library() -> ctypes.CDLL:
     return LIBRARY.load()
 
 
+#: Strides the kernel supports: 1, or an even power of two whose stride/2
+#: threads per block partial fit in a warp.
+STRIDES = (1, 2, 4, 8, 16, 32, 64)
+
+
+def _float4_rows(a: torch.Tensor) -> torch.Tensor:
+    """``a`` itself when the kernel can read it as 16-byte pairs of samples
+    (aligned base, even row stride, a readable pair past the last sample of
+    every row); else a copy into rows of even length that is."""
+    B, T = a.shape
+    lda = a.stride(0)
+    end = a.storage_offset() + (B - 1) * lda + T + T % 2
+    if (a.data_ptr() % 16 == 0 and lda % 2 == 0
+            and end * a.element_size() <= a.untyped_storage().nbytes()):
+        return a
+    buf = torch.zeros((B, T + T % 2), dtype=a.dtype, device=a.device)
+    buf[:, :T] = a
+    return buf[:, :T]
+
+
 def sc_windows_cuda(a: torch.Tensor, half: int, stride: int, offset: int,
                     G: int):
     """One kernel launch over a [B, T] complex64 CUDA analytic signal (unit
@@ -69,9 +92,14 @@ def sc_windows_cuda(a: torch.Tensor, half: int, stride: int, offset: int,
     if a.stride(1) != 1:
         raise ValueError(f"a must have unit column stride, got {a.stride()}")
     B, T = a.shape
-    if T >= 2 ** 31 or B >= 2 ** 31:
-        raise ValueError(f"a is too large for int32 indexing: {tuple(a.shape)}")
+    if T >= 2 ** 31 or B > 65535:
+        raise ValueError(f"a is too large for the kernel's grid: "
+                         f"{tuple(a.shape)}")
     check_args(T, half, stride, offset, G)
+    if stride not in STRIDES or half % 2:
+        raise ValueError(f"the window kernel takes strides {STRIDES} and an "
+                         f"even half, got stride={stride}, half={half}")
+    a = _float4_rows(a)
     dev = a.device
     lib = load_library()
     P = torch.empty((B, G), dtype=torch.complex64, device=dev)

@@ -12,8 +12,8 @@ import math
 
 import torch
 
-from projectultra_tpu.config import Modulation
-from projectultra_tpu.ofdm import constellations as con
+from ..config import Modulation
+from ..ofdm import constellations as con
 
 MAX_LLR = 10.0
 MIN_LLR_MAG = 0.5

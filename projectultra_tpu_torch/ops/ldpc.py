@@ -1,10 +1,10 @@
 """Batched LDPC encode and min-sum decode (port of
 projectultra_tpu/ops/ldpc.py; reference src/fec/ldpc_decoder.cpp:151-236).
 
-The code graph is built on the host by the shared, jax-free
-``projectultra_tpu.fec.ldpc`` and held on the device by ``LDPCGraph`` as
-buffers.  ``decode`` runs the hand-written CUDA kernel
-(``ops/cuda_ldpc.py``) for CUDA tensors and the plain PyTorch version
+The code graph is built on the host by the port's ``fec.ldpc`` and held
+on the device by ``LDPCGraph`` as buffers.  ``decode`` runs the
+hand-written CUDA kernel (``ops/cuda_ldpc.py``) for CUDA tensors and the
+plain PyTorch version
 ``decode_plain`` for CPU tensors.  The plain version is also the oracle the
 kernel is tested against on the card.
 
@@ -29,8 +29,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from projectultra_tpu.fec.ldpc import (LDPCCode, MIN_SUM_SCALE, V2C_CLAMP,
-                                       DEFAULT_MAX_ITERS)
+from ..fec.ldpc import (DEFAULT_MAX_ITERS, LDPCCode, MIN_SUM_SCALE,
+                        V2C_CLAMP)
 
 
 @functools.lru_cache(maxsize=None)
@@ -52,13 +52,36 @@ def _var_edge_table(code: LDPCCode):
     return tab, Dv
 
 
+def _sorted_rows(code: LDPCCode, var_edges: np.ndarray):
+    """The graph with its check rows sorted by degree, descending (stable):
+    (row_vars [m, D], row_deg [m], var_edges [n, Dv]) int32, where each
+    variable's edge list names the same edges in the same order (ascending
+    ORIGINAL check order) at their sorted rows, e = d*m + sorted row.  The
+    CUDA kernel reads these, so that the rows of one warp share a degree;
+    every c2v, sum and syndrome is the same as on the original tables."""
+    m, D = code.m, code.max_degree
+    deg = code.row_mask.sum(1).astype(np.int32)
+    order = np.argsort(-deg, kind="stable")
+    pos = np.empty(m, np.int64)
+    pos[order] = np.arange(m)
+    e = var_edges.astype(np.int64)
+    pad = e >= D * m
+    e = np.where(pad, D * m, (e // m) * m + pos[np.where(pad, 0, e % m)])
+    return (np.ascontiguousarray(code.row_vars[order], np.int32),
+            np.ascontiguousarray(deg[order]),
+            np.ascontiguousarray(e, np.int32))
+
+
 class LDPCGraph(nn.Module):
     """One code rate's Tanner graph as device buffers.
 
     Buffers: ``h_t`` [k, m] f32 (H_data transposed, for encoding),
     ``row_vars`` [m, D] int32 and ``row_mask`` [m, D] bool (per-check edge
     lists, valid edges first), ``row_deg`` [m] int32, ``var_edges``
-    [n, Dv] int32 (see ``_var_edge_table``)."""
+    [n, Dv] int32 (see ``_var_edge_table``); for the CUDA kernel, the same
+    graph with its check rows sorted by degree (``sorted_row_vars``,
+    ``sorted_row_deg``, ``sorted_var_edges``; see ``_sorted_rows``) and
+    ``var_deg`` [n] int32, each variable's number of edges."""
 
     def __init__(self, code: LDPCCode, var_edges: np.ndarray | None = None):
         super().__init__()
@@ -77,6 +100,12 @@ class LDPCGraph(nn.Module):
             code.row_mask.sum(1).astype(np.int32)))
         self.register_buffer("var_edges", torch.from_numpy(
             np.ascontiguousarray(var_edges, np.int32)))
+        for name, table in zip(("sorted_row_vars", "sorted_row_deg",
+                                "sorted_var_edges"),
+                               _sorted_rows(code, var_edges)):
+            self.register_buffer(name, torch.from_numpy(table))
+        self.register_buffer("var_deg", torch.from_numpy(
+            (var_edges < self.D * self.m).sum(1).astype(np.int32)))
 
 
 @functools.lru_cache(maxsize=None)

@@ -31,9 +31,8 @@ import functools
 import numpy as np
 import torch
 
-from projectultra_tpu.config import CodeRate
-from projectultra_tpu.fec import ldpc as ldpc_codes
-
+from ..config import CodeRate
+from ..fec import ldpc as ldpc_codes
 from ..ops import ldpc as ldpc_ops
 from ..sim.watterson import analytic_mult
 from ..sync import chirp as chirp_mod

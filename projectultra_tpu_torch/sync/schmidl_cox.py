@@ -28,10 +28,9 @@ import math
 import numpy as np
 import torch
 
-from projectultra_tpu.config import CodeRate, ModemConfig, bits_per_symbol
-from projectultra_tpu.fec import ldpc as ldpc_codes
-from projectultra_tpu.ofdm import carriers as carriers_mod
-
+from ..config import CodeRate, ModemConfig, bits_per_symbol
+from ..fec import ldpc as ldpc_codes
+from ..ofdm import carriers as carriers_mod
 from ..fec.interleave import channel_interleaver
 from ..ofdm import demodulator as demod_mod
 from ..ofdm import pipeline as ofdm_pipeline

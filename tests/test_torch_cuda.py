@@ -6,14 +6,17 @@ and skip without one.  On the card:
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 
 LDPC: bits, ok flags, iteration counts and total LLRs must be equal on
-every lane: golden codewords of all five rates, noisy waterfall batches,
-trap_escape, max_iters 0 and 1, and the whole frame pipeline on the card
-against the same pipeline on the CPU.
+every lane: golden codewords of all five rates, noisy batches of
+B in {1, 3, 131, 256, 513, 4,096} at all five rates, both block sizes,
+lanes whose channel decisions already satisfy every check beside lanes
+that iterate, max_iters {0, 1, 2, 50}, trap_escape, a misaligned view,
+and the whole frame pipeline on the card against the same pipeline on
+the CPU.
 
 Schmidl-Cox windows: P, R1 and R2 within rtol 2e-4, atol 2e-3 (the
 tolerance of tests/test_pallas_sync.py; the kernel sums in another order)
-at stride 1 and 8, on a ragged length, and detection through the kernel
-identical to detection through the plain version.  The acquisition-
+at strides 1, 2 and 8, G below one tile and ragged last tiles, odd B, odd offsets, lda > T and odd contiguous rows, and detection
+through the kernel identical to detection through the plain version.  The acquisition-
 inclusive Cox step goes through both kernels and never synchronises.
 
 Chirp acquisition, MC-DPSK and the Watterson channel (plain PyTorch on the
@@ -31,11 +34,9 @@ import torch
 
 torch.set_num_threads(2)
 
-from projectultra_tpu.config import CodeRate, Modulation  # noqa: E402
-from projectultra_tpu.fec import ldpc  # noqa: E402
-
-from projectultra_tpu.config import ModemConfig  # noqa: E402
-
+from projectultra_tpu_torch.config import (CodeRate, ModemConfig,  # noqa: E402
+                                           Modulation)
+from projectultra_tpu_torch.fec import ldpc  # noqa: E402
 from projectultra_tpu_torch.ofdm import pipeline as TP  # noqa: E402
 from projectultra_tpu_torch.ops import cuda_ldpc, cuda_sc  # noqa: E402
 from projectultra_tpu_torch.ops import ldpc as T  # noqa: E402
@@ -119,6 +120,66 @@ def test_kernel_trap_escape_equals_plain(dev):
     _assert_kernel_equals_plain(CodeRate.R1_2,
                                 _noisy_llr(CodeRate.R1_2, 0.62, 256), dev,
                                 max_iters=6, trap_escape=True)
+
+
+SIGMA = {CodeRate.R1_4: 1.1, CodeRate.R1_2: 0.62, CodeRate.R2_3: 0.55,
+         CodeRate.R3_4: 0.5, CodeRate.R5_6: 0.5}
+
+
+@pytest.mark.parametrize("rate", list(NAMES))
+@pytest.mark.parametrize("B", [1, 3, 131, 256, 513, 4096])
+def test_kernel_equals_plain_at_every_launch_shape(dev, rate, B):
+    """Batches across the block-size rule (1,024 threads per codeword at
+    small B, 256 at large B)."""
+    _assert_kernel_equals_plain(rate, _noisy_llr(rate, SIGMA[rate], B), dev)
+
+
+@pytest.mark.parametrize("rate", list(NAMES))
+@pytest.mark.parametrize("threads", [256, 1024])
+def test_kernel_equals_plain_at_every_block_size(dev, monkeypatch, rate,
+                                                 threads):
+    monkeypatch.setattr(cuda_ldpc, "block_threads_for", lambda B, sms: threads)
+    _assert_kernel_equals_plain(rate, _noisy_llr(rate, SIGMA[rate], 131), dev)
+
+
+def test_kernel_equals_plain_on_clean_and_noisy_lanes(dev):
+    """A batch where some lanes' channel decisions satisfy every check (the
+    kernel runs their first syndrome without the next update) and others do
+    not (fused)."""
+    rate = CodeRate.R1_2
+    llr = _noisy_llr(rate, 0.35, 512)
+    graph = T.graph_for(ldpc.get_code(rate), dev)
+    noisy = T._syndrome(graph, torch.from_numpy(llr).to(dev)).any(-1)
+    assert 0 < int(noisy.sum()) < 512
+    _, ok, iters = _assert_kernel_equals_plain(rate, llr, dev)
+    assert bool((iters[noisy & ok] > 0).any())
+
+
+@pytest.mark.parametrize("max_iters", [0, 1, 2, 50])
+@pytest.mark.parametrize("B", [3, 513, 4096])
+def test_kernel_equals_plain_at_max_iters(dev, max_iters, B):
+    _assert_kernel_equals_plain(CodeRate.R1_2,
+                                _noisy_llr(CodeRate.R1_2, 0.62, B), dev,
+                                max_iters=max_iters)
+
+
+@pytest.mark.parametrize("B", [131, 4096])
+def test_kernel_trap_escape_equals_plain_at_width(dev, B):
+    _assert_kernel_equals_plain(CodeRate.R1_4,
+                                _noisy_llr(CodeRate.R1_4, 1.1, B), dev,
+                                trap_escape=True)
+
+
+def test_kernel_takes_a_misaligned_view(dev):
+    """Rows at a 4-byte (not 16-byte) offset are copied aligned and decode
+    like plain."""
+    llr = _noisy_llr(CodeRate.R1_2, 0.62, 66)
+    x = torch.from_numpy(llr).to(dev).reshape(-1)[648 + 1:].reshape(-1)
+    x = x[:64 * 648].reshape(64, 648)
+    assert x.data_ptr() % 16
+    graph = T.graph_for(ldpc.get_code(CodeRate.R1_2), dev)
+    for a, b in zip(cuda_ldpc.decode_cuda(graph, x), T.decode_plain(graph, x)):
+        assert torch.equal(a, b)
 
 
 def test_decode_on_cuda_goes_through_the_kernel(dev):
@@ -218,6 +279,29 @@ def test_window_kernel_equals_plain(dev, T, stride, offset):
     _assert_windows_close(a, 256, stride, offset, min(G, 5))
 
 
+@pytest.mark.parametrize("B", [1, 7])
+@pytest.mark.parametrize("stride", [1, 2, 8])
+@pytest.mark.parametrize("G", [5, 512, 1000, 2049])
+def test_window_kernel_tiles(dev, B, stride, G):
+    """Tiles of 512 outputs: G below one tile, exactly one, ragged last
+    tiles, odd B, an odd offset at stride 1, and a row stride (lda) above
+    T."""
+    offset = 48 if stride > 1 else 47
+    T = offset + stride * (G - 1) + 2 * 256 + 3
+    a = _analytic_on(dev, B, T, seed=G + stride)
+    assert a.stride(0) > T
+    _assert_windows_close(a, 256, stride, offset, G)
+
+
+def test_window_kernel_reads_odd_rows(dev):
+    """Odd T in contiguous rows (odd lda): the wrapper copies the rows into
+    an even row stride for the kernel's 16-byte loads."""
+    a = _analytic_on(dev, 3, 3001).contiguous()
+    assert a.stride(0) % 2 == 1
+    _assert_windows_close(a, 256, 1, 1, 3001 - 512 - 1 + 1)
+    _assert_windows_close(a, 256, 8, 8, (3001 - 512 - 8) // 8 + 1)
+
+
 def test_window_kernel_wrapper_checks_its_inputs(dev):
     a = _analytic_on(dev, 2, 4000)
     with pytest.raises(ValueError):
@@ -228,6 +312,8 @@ def test_window_kernel_wrapper_checks_its_inputs(dev):
         cuda_sc.sc_windows_cuda(a.T, 256, 8, 48, 10)
     with pytest.raises(ValueError):
         cuda_sc.sc_windows_cuda(a, 256, 8, 48, 500)
+    with pytest.raises(ValueError):
+        cuda_sc.sc_windows_cuda(a, 256, 128, 0, 10)  # stride/2 > a warp
 
 
 def _cox_buffers(dev, B, snr_db=17.0, cfo=0.0, seed=5):

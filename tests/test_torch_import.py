@@ -1,8 +1,10 @@
-"""The PyTorch port imports without jax.
+"""The PyTorch port imports neither jax nor the JAX package.
 
 Importing ``projectultra_tpu_torch`` and every one of its modules in a fresh
-interpreter must leave ``jax`` out of ``sys.modules``, and no port source
-may contain a jax import.
+interpreter must leave ``jax`` and ``projectultra_tpu`` out of
+``sys.modules``, and no port source, and not ``chip_smoke.py``, may name
+either in an import.  The host modules the port needs are its own copies
+(pinned to the originals by ``tests/test_torch_host.py``).
 """
 
 import ast
@@ -43,8 +45,20 @@ def test_port_modules_found():
                  "projectultra_tpu_torch.ops.cuda_build",
                  "projectultra_tpu_torch.sync.chirp",
                  "projectultra_tpu_torch.psk",
-                 "projectultra_tpu_torch.psk.mc_dpsk"):
+                 "projectultra_tpu_torch.psk.mc_dpsk",
+                 "projectultra_tpu_torch.config",
+                 "projectultra_tpu_torch.fec.ldpc",
+                 "projectultra_tpu_torch.ofdm.carriers",
+                 "projectultra_tpu_torch.ofdm.constellations",
+                 "projectultra_tpu_torch.utils.mt19937"):
         assert name in mods
+
+
+FORBIDDEN = ("jax", "projectultra_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == top or name.startswith(top + ".") for top in FORBIDDEN)
 
 
 def test_import_leaves_jax_out():
@@ -52,49 +66,49 @@ def test_import_leaves_jax_out():
             f"mods = {_port_modules()!r}\n"
             "for m in mods:\n"
             "    importlib.import_module(m)\n"
-            "bad = sorted(k for k in sys.modules if k == 'jax' "
-            "or k.startswith('jax.'))\n"
-            "print('JAX_MODULES', bad)\n"
+            f"bad = sorted(k for k in sys.modules if any(k == t or "
+            f"k.startswith(t + '.') for t in {FORBIDDEN!r}))\n"
+            "print('FORBIDDEN_MODULES', bad)\n"
             "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-SHARED = {"projectultra_tpu.config", "projectultra_tpu.fec.ldpc",
-          "projectultra_tpu.ofdm.carriers",
-          "projectultra_tpu.ofdm.constellations",
-          "projectultra_tpu.utils.mt19937"}
-
-
 def _imported_modules(path):
-    """Every module an import statement of the file names (for ``from m
-    import a`` both ``m`` and ``m.a``, whichever is a module)."""
+    """Every module an import names in the file: import statements (for
+    ``from m import a`` both ``m`` and ``m.a``) and string arguments of
+    ``importlib.import_module`` and ``__import__``."""
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
             yield from (alias.name for alias in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            subs = [f"{node.module}.{a.name}" for a in node.names]
-            yield from (subs if all(x in SHARED for x in subs)
-                        else [node.module])
+            yield node.module
+            yield from (f"{node.module}.{a.name}" for a in node.names)
+        elif isinstance(node, ast.Call) and node.args \
+                and isinstance(node.args[0], ast.Constant) \
+                and isinstance(node.args[0].value, str) \
+                and getattr(node.func, "attr", getattr(node.func, "id", "")) \
+                in ("import_module", "__import__"):
+            yield node.args[0].value
 
 
 def test_no_jax_import_in_port_sources():
-    """No jax, and of the JAX package only its jax-free host modules."""
-    for path in PORT.rglob("*.py"):
+    """No port module imports jax or anything of the JAX package."""
+    sources = sorted(PORT.rglob("*.py"))
+    assert len(sources) > 20
+    for path in sources:
         for name in _imported_modules(path):
-            assert name != "jax" and not name.startswith("jax."), (path, name)
-            if name.split(".")[0] == "projectultra_tpu":
-                assert name in SHARED, (path, name)
+            assert not _forbidden(name), (path, name)
 
 
 def test_chip_smoke_imports_only_the_port():
-    """chip_smoke.py reaches the shared host modules through the port and
-    imports nothing of jax or of the JAX package itself."""
+    """chip_smoke.py reaches everything through the port and imports
+    nothing of jax or of the JAX package."""
     names = set(_imported_modules(ROOT / "chip_smoke.py"))
     assert "projectultra_tpu_torch" in names
     for name in names:
-        assert name.split(".")[0] not in ("jax", "projectultra_tpu"), name
+        assert not _forbidden(name), name
 
 
 def test_import_pins_float32():

@@ -154,3 +154,62 @@ def test_nvcc_command_targets_hopper():
     assert "--fmad=false" in cmd and "-shared" in cmd
     assert cuda_ldpc.SOURCE.is_file()
     assert cuda_ldpc.SOURCE.name == "ldpc_minsum.cu"
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's launch shape (the kernel itself runs only on the card:
+# tests/test_torch_cuda.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B", [1, 3, 131, 256, 512, 513, 2048, 4096, 16384])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_kernel_block_size_rule(B, sms):
+    threads = cuda_ldpc.block_threads_for(B, sms)
+    # Blocks of 256 threads only where each SM gets enough codewords to
+    # fill it; a small batch gives each codeword 1,024.
+    assert threads == (256 if B / sms >= cuda_ldpc.WIDE_BELOW else 1024)
+    if sms == 132:
+        assert threads == {16384: 256, 4096: 256, 2048: 256, 513: 1024,
+                           512: 1024, 256: 1024, 131: 1024, 3: 1024,
+                           1: 1024}[B]
+
+
+@pytest.mark.parametrize("rate", RATES)
+def test_kernel_tables_sort_rows_and_decode_alike(rate):
+    """The kernel's tables: the check rows sorted by degree, descending,
+    each variable's edges at their sorted rows, in the same (ascending
+    original check) order, and each variable's degree.  The plain decoder on that sorted graph equals
+    the JAX decoder lane for lane."""
+    code = ldpc.get_code(rate)
+    graph = T.graph_for(code, torch.device("cpu"))
+    deg = graph.sorted_row_deg
+    assert bool((deg[:-1] >= deg[1:]).all())
+    order = np.argsort(-code.row_mask.sum(1), kind="stable")
+    np.testing.assert_array_equal(graph.sorted_row_vars.numpy(),
+                                  code.row_vars[order])
+    m, D = code.m, code.max_degree
+    old, new = graph.var_edges.numpy(), graph.sorted_var_edges.numpy()
+    pad = old >= D * m
+    np.testing.assert_array_equal(new >= D * m, pad)
+    # Same check slot d, and the sorted row holds the original row.
+    np.testing.assert_array_equal((new // m)[~pad], (old // m)[~pad])
+    np.testing.assert_array_equal(order[(new % m)[~pad]], (old % m)[~pad])
+    # Each variable's degree; its edges come first, the padding after.
+    var_deg = graph.var_deg.numpy()
+    np.testing.assert_array_equal(var_deg, (~pad).sum(1))
+    np.testing.assert_array_equal(np.arange(graph.Dv)[None] < var_deg[:, None],
+                                  ~pad)
+
+    class Sorted:
+        row_vars, var_edges, Dv = (graph.sorted_row_vars,
+                                   graph.sorted_var_edges, graph.Dv)
+        row_mask = torch.from_numpy(code.row_mask[order])
+
+    sigma = {CodeRate.R1_4: 1.1, CodeRate.R1_2: 0.62}.get(rate, 0.5)
+    llr = _noisy_llr(rate, sigma)
+    ours = T.decode_plain(Sorted, torch.from_numpy(llr), max_iters=12)
+    ref = J.decode(code, jnp.asarray(llr), max_iters=12)
+    np.testing.assert_array_equal((ours[0][:, :code.k] < 0).numpy(),
+                                  np.asarray(ref[0]).astype(bool))
+    np.testing.assert_array_equal(ours[1].numpy(), np.asarray(ref[1]))
+    np.testing.assert_array_equal(ours[2].numpy(), np.asarray(ref[2]))

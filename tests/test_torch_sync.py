@@ -247,6 +247,19 @@ def test_window_kernel_nvcc_command_targets_hopper():
     assert cuda_sc.SOURCE.is_file() and cuda_sc.SOURCE.name == "sc_windows.cu"
 
 
+@pytest.mark.parametrize("T,view", [(3000, False), (3001, False),
+                                    (3001, True), (2999, True)])
+def test_window_kernel_row_layout(T, view):
+    """The rows the kernel reads as 16-byte pairs: a view of wider rows is
+    taken as it is; odd contiguous rows are copied into even rows."""
+    base = torch.randn((3, 4096 if view else T), dtype=torch.complex64)
+    a = base[:, :T]
+    rows = cuda_sc._float4_rows(a)
+    assert torch.equal(rows, a)
+    assert rows.stride(0) % 2 == 0
+    assert (rows.data_ptr() == a.data_ptr()) == (view or T % 2 == 0)
+
+
 # ---------------------------------------------------------------------------
 # Detection
 # ---------------------------------------------------------------------------
