@@ -2,9 +2,9 @@
 
 The port's own copy of the JAX package's config layer (reference:
 include/ultra/types.hpp:27-367), pinned field for field and property for
-property to the original by ``tests/test_torch_host.py``.  The
-speed-profile presets and ``FrameType`` are not copied: nothing in the
-port reads them yet.  ``ModemConfig`` is a frozen dataclass, so it keys
+property to the original by ``tests/test_torch_host.py``, with
+``FrameType`` and the speed-profile presets (types.hpp:262-367).
+``ModemConfig`` is a frozen dataclass, so it keys
 the port's per-config table caches; every derived quantity is a plain
 Python int (a shape).
 """
@@ -81,6 +81,17 @@ def code_rate_value(rate: CodeRate) -> float:
     }.get(rate, 0.5)
 
 
+class FrameType(enum.IntEnum):
+    """(types.hpp:237-245)"""
+    DATA = 0x00
+    ACK = 0x01
+    NACK = 0x02
+    SYNC = 0x03
+    PROBE = 0x04
+    CONNECT = 0x05
+    DISCONNECT = 0x06
+
+
 @dataclasses.dataclass(frozen=True)
 class ModemConfig:
     """Master DSP config (reference: include/ultra/types.hpp:139-234).
@@ -150,3 +161,51 @@ class ModemConfig:
     def theoretical_throughput(self, mod: Modulation, rate: CodeRate) -> float:
         return (self.data_carriers * bits_per_symbol(mod)
                 * code_rate_value(rate) * self.symbol_rate)
+
+
+# ---------------------------------------------------------------------------
+# Speed-profile presets (types.hpp:262-367)
+# ---------------------------------------------------------------------------
+
+def conservative() -> ModemConfig:
+    return ModemConfig(cp_mode=CyclicPrefixMode.LONG, symbol_guard=8,
+                       pilot_spacing=2, modulation=Modulation.QPSK,
+                       code_rate=CodeRate.R1_2,
+                       speed_profile=SpeedProfile.CONSERVATIVE)
+
+
+def balanced() -> ModemConfig:
+    return ModemConfig(cp_mode=CyclicPrefixMode.MEDIUM, symbol_guard=4,
+                       pilot_spacing=2, modulation=Modulation.QAM64,
+                       code_rate=CodeRate.R3_4,
+                       speed_profile=SpeedProfile.BALANCED)
+
+
+def turbo() -> ModemConfig:
+    return ModemConfig(cp_mode=CyclicPrefixMode.SHORT, symbol_guard=0,
+                       pilot_spacing=2, modulation=Modulation.QAM256,
+                       code_rate=CodeRate.R5_6,
+                       speed_profile=SpeedProfile.TURBO)
+
+
+def high_throughput() -> ModemConfig:
+    return ModemConfig(fft_size=1024, num_carriers=59,
+                       cp_mode=CyclicPrefixMode.MEDIUM, symbol_guard=0,
+                       pilot_spacing=4, modulation=Modulation.QAM16,
+                       code_rate=CodeRate.R2_3,
+                       speed_profile=SpeedProfile.BALANCED,
+                       rls_lambda=0.97)
+
+
+def nvis_mode() -> ModemConfig:
+    return ModemConfig(fft_size=1024, num_carriers=59,
+                       cp_mode=CyclicPrefixMode.MEDIUM, symbol_guard=0,
+                       use_pilots=False, pilot_spacing=2,
+                       modulation=Modulation.DQPSK, code_rate=CodeRate.R3_4,
+                       speed_profile=SpeedProfile.TURBO)
+
+
+def for_profile(profile: SpeedProfile) -> ModemConfig:
+    return {SpeedProfile.CONSERVATIVE: conservative,
+            SpeedProfile.BALANCED: balanced,
+            SpeedProfile.TURBO: turbo}.get(profile, balanced)()

@@ -1,7 +1,7 @@
 """Batched OFDM demodulator (port of projectultra_tpu/ofdm/demodulator.py;
 reference src/ofdm/{demodulator.cpp, channel_equalizer.cpp}).
 
-Two receivers over the same per-symbol blocks:
+Three receivers over the same per-symbol blocks:
 
 * the differential no-pilot fast path: with no pilots the demodulator
   state never changes over the data symbols, so all of them are analysed
@@ -11,14 +11,23 @@ Two receivers over the same per-symbol blocks:
   Python loop over the data symbols whose carried state is exactly the
   reference's tracked state (``DemodState``): LS pilot estimates, EMA
   channel smoothing, residual-CFO and timing-slope tracking, pilot
-  interpolation, temporal noise estimation, equalize, demap.
+  interpolation, temporal noise estimation, equalize, demap.  QAM64 and
+  QAM256 on a pilot plan re-demap the whole frame with per-carrier noise
+  from three estimators (decision residual, interpolated pilot diffs,
+  instantaneous residual);
+* the coherent refined path of no-pilot plans (``_demod_coherent_refined``):
+  every symbol's used bins, a dual decision-directed PLL (common phase and
+  timing slope, a Python loop over the symbols), three alternating rank-1
+  LS refits of the channel, and per-carrier residual noise.
 
 Coherent modulations run on the half-scaled analytic signal
-(``maybe_analytic``).  ``demodulate_presynced`` routes as the JAX function
-does; ``demodulate_span`` is the Schmidl-Cox receivers' entry on a span cut
-at the first LTS.  QAM64/QAM256 (Tukey window, conjugate-image cancellation
-and the high-order noise estimators) and the coherent refined path of
-no-pilot plans are not ported and raise ``NotImplementedError``.
+(``maybe_analytic``); QAM64/QAM256 use the folded-Tukey analysis window,
+and with ``QAM256_RX = "real"`` QAM256 keeps the real passband and cancels
+its conjugate image in closed form (``cancel_conjugate_image``).
+``demodulate_presynced`` and ``demodulate_with_lts`` route as the JAX
+functions do, quirks included (ROADMAP's reference behaviours);
+``demodulate_span`` is the Schmidl-Cox receivers' entry on a span cut at
+the first LTS.
 """
 
 from __future__ import annotations
@@ -31,7 +40,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import ModemConfig, Modulation, is_differential
+from ..config import ModemConfig, Modulation, bits_per_symbol, is_differential
+from ..device import host_table
 from . import carriers as carriers_mod
 from ..ops import demap as demap_ops
 from ..ops import mixer as mixer_ops
@@ -49,7 +59,17 @@ FADE_THRESHOLD_RATIO = 0.1
 MIN_CARRIER_NOISE_VAR = 1e-6
 MAX_CARRIER_NOISE_VAR = 100.0
 
-_SLICE4 = "comes with the port's slice 4 (the rest of the PHY)"
+# 256QAM RX flavour: "analytic" (Hilbert front end + folded-Tukey window, no
+# conjugate image by construction) or "real" (real passband + Tukey +
+# closed-form image cancellation).  Read at call time, like the JAX module's
+# switch of the same name, so a test can set it in both packages.
+QAM256_RX = "analytic"
+
+
+def _hi_order(mod: Modulation) -> bool:
+    """Modulations dense enough for the folded-Tukey window and the
+    high-order noise estimators; <=32QAM keeps the rect window."""
+    return mod in (Modulation.QAM64, Modulation.QAM256)
 
 
 class DemodState(NamedTuple):
@@ -115,19 +135,92 @@ def init_state(config: ModemConfig, B: int, cfo_hz, initial_phase,
 # Host constant tables (numpy), re-homed from the JAX module
 # ---------------------------------------------------------------------------
 
+def _fold_ramp(config: ModemConfig, L: int) -> int:
+    """Ramp length of the folded-Tukey analysis window: the usable cyclic
+    slack, bounded by the CP."""
+    return max(0, min(config.cyclic_prefix, L - config.fft_size))
+
+
 @functools.lru_cache(maxsize=None)
-def _used_bins_w(config: ModemConfig, L: int):
-    """DFT rows of the USED bins ([data..., pilot...]) with the CP/guard
-    region zeroed (rectangular window), as real/imag f32 [L, Cu]."""
+def _used_bins_w(config: ModemConfig, L: int, window: str = "rect"):
+    """DFT rows of the USED bins ([data..., pilot...]) as real/imag f32
+    [L, Cu].  ``window="rect"`` zeroes the CP/guard region; ``"tukey"``
+    is the folded Tukey window over [0, N+R) (ramps R = min(cp, L-N),
+    w[n] + w[n+N] = 1), which gives the same bins for cyclic content but
+    de-weights the symbol-boundary samples where Hilbert ringing lives."""
     cm = carriers_mod.carrier_map(config)
     N, cp = config.fft_size, config.cyclic_prefix
     bins = np.concatenate([np.asarray(cm.data_idx),
                            np.asarray(cm.pilot_idx)]).astype(np.float64)
-    n_idx = np.arange(L) - cp
-    live = (n_idx >= 0) & (n_idx < N)
-    W = np.exp(-2j * np.pi * np.outer(n_idx % N, bins) / N)
-    W = np.where(live[:, None], W, 0.0)
+    n = np.arange(L)
+    if window == "tukey":
+        R = _fold_ramp(config, L)
+        w = np.zeros(L)
+        if R > 0:
+            up = np.sin(np.pi * (np.arange(R) + 0.5) / (2 * R)) ** 2
+            w[:R] = up
+            w[R:N] = 1.0
+            w[N:N + R] = 1.0 - up
+        else:
+            w[:N] = 1.0
+        W = w[:, None] * np.exp(-2j * np.pi
+                                * np.outer((n - cp) % N, bins) / N)
+    else:
+        n_idx = n - cp
+        live = (n_idx >= 0) & (n_idx < N)
+        W = np.exp(-2j * np.pi * np.outer(n_idx % N, bins) / N)
+        W = np.where(live[:, None], W, 0.0)
     return W.real.astype(np.float32), W.imag.astype(np.float32)
+
+
+def n_data_bins(config: ModemConfig) -> int:
+    return len(carriers_mod.carrier_map(config).data_idx)
+
+
+@functools.lru_cache(maxsize=None)
+def _pilot_to_data_interp(config: ModemConfig) -> np.ndarray:
+    """[Cd, Np] row-stochastic linear-interpolation weights mapping
+    per-PILOT noise measurements onto the data carriers by signed bin
+    number (nearest-pilot clamp at the band edges)."""
+    cm = carriers_mod.carrier_map(config)
+    dk = np.asarray(cm.data_k, np.float64)
+    pk = np.asarray(cm.pilot_k, np.float64)
+    order = np.argsort(pk)
+    pks = pk[order]
+    W = np.zeros((len(dk), len(pk)), np.float32)
+    for i, k in enumerate(dk):
+        j = np.searchsorted(pks, k)
+        if j == 0:
+            W[i, order[0]] = 1.0
+        elif j >= len(pks):
+            W[i, order[-1]] = 1.0
+        else:
+            lo, up = pks[j - 1], pks[j]
+            a = (k - lo) / (up - lo) if up > lo else 0.5
+            W[i, order[j - 1]] = 1.0 - a
+            W[i, order[j]] = a
+    return W
+
+
+@functools.lru_cache(maxsize=None)
+def _used_bins_k(config: ModemConfig) -> np.ndarray:
+    """Signed bin numbers of the USED bins in to_baseband_fd's
+    [data..., pilot...] layout."""
+    cm = carriers_mod.carrier_map(config)
+    return np.concatenate([np.asarray(cm.data_k),
+                           np.asarray(cm.pilot_k)]).astype(np.float32)
+
+
+def _live_carrier_mask(mod: Modulation, S: int, Cd: int,
+                       n_bits: int | None) -> np.ndarray:
+    """[S, Cd] f32: 1 where the TX filled the carrier.  The modulator
+    leaves carriers whose bits lie entirely past the input empty; their
+    hard decisions (noise snapped to inner points) must not feed the
+    refits or the residual noise estimates."""
+    if n_bits is None:
+        return np.ones((S, Cd), np.float32)
+    first_bit = np.arange(S * Cd).reshape(S, Cd) * bits_per_symbol(mod)
+    return (first_bit < n_bits).astype(np.float32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -150,8 +243,9 @@ def _analysis_tensor(config: ModemConfig, t0_base: int, S: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _bins_w_on(config: ModemConfig, L: int, device: torch.device):
-    Wr, Wi = _used_bins_w(config, L)
+def _bins_w_on(config: ModemConfig, L: int, device: torch.device,
+               window: str = "rect"):
+    Wr, Wi = _used_bins_w(config, L, window)
     return torch.from_numpy(Wr).to(device), torch.from_numpy(Wi).to(device)
 
 
@@ -258,9 +352,10 @@ def maybe_analytic(mod: Modulation, samples: torch.Tensor,
                    front: str = "analytic") -> torch.Tensor:
     """``analytic_half`` for COHERENT modulations, whose decision
     boundaries cannot absorb the ICI a real passband's negative-frequency
-    image leaks under CFO; differential modes and ``front="real"`` keep the
-    real passband."""
-    if front == "real" or is_differential(mod):
+    image leaks under CFO; differential modes, ``front="real"`` and QAM256
+    with ``QAM256_RX == "real"`` keep the real passband."""
+    if front == "real" or is_differential(mod) or (
+            mod == Modulation.QAM256 and QAM256_RX == "real"):
         return samples
     return analytic_half(samples)
 
@@ -296,17 +391,76 @@ def _cfo_active(freq_offset_hz: torch.Tensor) -> torch.Tensor:
     return freq_offset_hz.abs() > 0.01
 
 
+def _dirichlet(x: torch.Tensor, R: int, N: int) -> torch.Tensor:
+    """D_R(x) = sum_{n=0}^{R-1} e^{-j*2pi*n*x/N}, safe at x = 0 (-> R)."""
+    mag = R * torch.sinc(R * x / N) / torch.sinc(x / N)
+    ang = -(math.pi * (R - 1) / N) * x
+    return torch.complex(mag * torch.cos(ang), mag * torch.sin(ang))
+
+
+def cancel_conjugate_image(config: ModemConfig, state: DemodState,
+                           fd: torch.Tensor, t0: int, L: int) -> torch.Tensor:
+    """Closed-form cancellation of a REAL passband's conjugate image in
+    the [B, Cu] used bins of one folded-Tukey window (demodulator.py:259-329
+    of the JAX package, which derives it): fd = clean + K conj(clean) with
+    K[b,k,m] = e^{j Gamma_b} / N e^{j 2pi cp (k_k + k_m)/N} E_w(nu[b,m] + k_k),
+    inverted to second order, w = fd - K conj(fd), clean ~ w + K conj(K w)."""
+    N, cp = config.fft_size, config.cyclic_prefix
+    fs, fc = config.sample_rate, config.center_freq
+    R = _fold_ramp(config, L)
+    k = host_table(fd.device, _used_bins_k, config)                 # [Cu]
+
+    active = _cfo_active(state.freq_offset_hz)
+    d_hat = torch.where(active, state.freq_offset_hz, 0.0)        # [B]
+    fp = torch.where(active, state.freq_phase, 0.0)               # [B]
+
+    # Exact 2*pi*fc*t0/fs mod 2*pi by integer-modular arithmetic, rounded
+    # as the JAX float32 product.
+    num = (fc * (int(t0) % fs)) % fs
+    phi0 = float(np.float32(2.0 * np.pi / fs) * np.float32(num))
+
+    nu = (2.0 * fc + 2.0 * d_hat[:, None]) * (N / fs) + k[None, :]  # [B, Cu]
+    x = nu[:, None, :] + k[None, :, None]                         # [B, k, m]
+    gamma = 2.0 * fp - 2.0 * phi0                                 # [B]
+
+    EN = _dirichlet(x, N, N)
+    if R > 0:
+        half = N / (2.0 * R)
+        rot = complex(np.complex64(np.exp(1j * np.pi / (2.0 * R))))
+        G = (0.5 * _dirichlet(x, R, N)
+             + 0.25 * (rot * _dirichlet(x - half, R, N)
+                       + rot.conjugate() * _dirichlet(x + half, R, N)))
+        tx2pi = 2.0 * math.pi * x
+        one_m = 1.0 - torch.complex(torch.cos(tx2pi), -torch.sin(tx2pi))
+        Ew = EN - one_m * G
+    else:
+        Ew = EN
+
+    ang = (gamma[:, None, None]
+           + (2.0 * math.pi * cp / N) * (k[None, :, None] + k[None, None, :]))
+    K = (1.0 / N) * torch.complex(torch.cos(ang), torch.sin(ang)) * Ew
+
+    def mv(A, v):
+        return torch.einsum("bkm,bm->bk", A, v)
+
+    w = fd - mv(K, fd.conj())
+    return w + mv(K, mv(K, w.conj()).conj())
+
+
 def to_baseband_fd(config: ModemConfig, state: DemodState,
-                   sym_samples: torch.Tensor, t0: int, bins_w=None,
-                   osc: torch.Tensor | None = None):
+                   sym_samples: torch.Tensor, t0: int,
+                   image_cancel: bool = False, taper: bool = False,
+                   bins_w=None, osc: torch.Tensor | None = None):
     """toBaseband + extractSymbol (channel_equalizer.cpp:19-71) for one
-    symbol, rectangular window: [B, L] real or analytic passband -> [B, Cu]
-    USED bins laid out [data..., pilot...].  ``t0`` is the window's sample
-    index since the last mixer reset.  Advances the CFO-correction phase by
-    L samples (only when |cfo| > 0.01, like the C++).  ``bins_w`` are the
-    ``_used_bins_w`` tensors (looked up by device when not given); ``osc``
-    is the mixer's [L] oscillator at ``t0`` when the caller already has
-    it."""
+    symbol: [B, L] real or analytic passband -> [B, Cu] USED bins laid out
+    [data..., pilot...].  ``t0`` is the window's sample index since the
+    last mixer reset.  Advances the CFO-correction phase by L samples (only
+    when |cfo| > 0.01, like the C++).  ``taper`` or ``image_cancel`` selects
+    the folded-Tukey window, ``image_cancel`` also cancels the conjugate
+    image.  ``bins_w`` are the rectangular window's ``_used_bins_w``
+    tensors when the caller holds them (otherwise they, and always the
+    Tukey rows, are looked up by device); ``osc`` is the mixer's [L]
+    oscillator at ``t0`` when the caller already has it."""
     L = sym_samples.shape[-1]
     dev = sym_samples.device
     if osc is None:
@@ -323,8 +477,14 @@ def to_baseband_fd(config: ModemConfig, state: DemodState,
                                                 device=dev))
 
     z = sym_samples.to(torch.complex64) * osc.conj()[None, :] * corr
-    Wr, Wi = bins_w if bins_w is not None else _bins_w_on(config, int(L), dev)
+    tukey = image_cancel or taper
+    if bins_w is None or tukey:
+        bins_w = _bins_w_on(config, int(L), dev,
+                            "tukey" if tukey else "rect")
+    Wr, Wi = bins_w
     fd = torch.complex(z.real @ Wr - z.imag @ Wi, z.real @ Wi + z.imag @ Wr)
+    if image_cancel:
+        fd = cancel_conjugate_image(config, state, fd, t0, int(L))
 
     new_phase = torch.where(
         active[:, 0],
@@ -337,6 +497,8 @@ def to_baseband_fd(config: ModemConfig, state: DemodState,
 def estimate_channel_from_lts(config: ModemConfig, state: DemodState,
                               training: torch.Tensor, t0_base: int = 0,
                               t0_stride: int | None = None,
+                              image_cancel: bool = False,
+                              taper: bool = False,
                               bins_w=None) -> DemodState:
     """(channel_equalizer.cpp:77-328): LS estimates from each training
     symbol; data carriers take the LAST symbol's H, pilots the average;
@@ -348,7 +510,8 @@ def estimate_channel_from_lts(config: ModemConfig, state: DemodState,
     The Cox preamble mixed ONE LTS at [plen, 2*plen) and repeated it, so
     its symbols demix at t0_base=plen with stride 0: otherwise the two
     estimates differ by 2*pi*fc*plen/fs (pi at the default plan) and the
-    pilot average cancels."""
+    pilot average cancels.  ``image_cancel`` and ``taper`` choose the
+    window as in ``to_baseband_fd``."""
     cm = carriers_mod.carrier_map(config)
     B, n_sym, L = training.shape
     stride = L if t0_stride is None else t0_stride
@@ -361,7 +524,9 @@ def estimate_channel_from_lts(config: ModemConfig, state: DemodState,
                               dtype=torch.complex64, device=dev)
     for s in range(n_sym):
         fd, state = to_baseband_fd(config, state, training[:, s],
-                                   t0_base + s * stride, bins_w=bins_w)
+                                   t0_base + s * stride,
+                                   image_cancel=image_cancel, taper=taper,
+                                   bins_w=bins_w)
         h_data_last = fd[:, :Cd] / tx_data[None, :]
         if len(cm.pilot_idx):
             h_pilot_sum = h_pilot_sum + fd[:, Cd:] / pilot_seq[None, :]
@@ -699,54 +864,196 @@ def demodulate_symbol(config: ModemConfig, mod: Modulation, state: DemodState,
     return llrs.reshape(eq.shape[0], -1), state
 
 
+def _scan_windows(mod: Modulation, front: str) -> tuple[bool, bool]:
+    """(image_cancel, taper) of the scan and of ``demodulate_with_lts``:
+    the Tukey window for QAM64/QAM256, image cancellation for QAM256 with
+    ``QAM256_RX == "real"``, neither on the real front end."""
+    hi, real = _hi_order(mod), front == "real"
+    return (hi and QAM256_RX == "real" and not real), (hi and not real)
+
+
 def _scan_data_symbols(config: ModemConfig, mod: Modulation,
                        state: DemodState, data: torch.Tensor, t0_base: int,
+                       front: str = "analytic", n_bits: int | None = None,
                        bins_w=None):
     """The symbol-by-symbol receiver over [B, S, L] data symbols starting
     at mixer time ``t0_base`` (the JAX ``lax.scan`` as a Python loop):
     returns (final state, llrs [B, S*C*bits]).  Every step is a fixed
-    sequence of tensor operations; nothing is read to the host."""
+    sequence of tensor operations; nothing is read to the host.  ``bins_w``
+    are the rectangular window's rows when the caller holds them.
+
+    QAM64/QAM256 on a pilot plan demap the whole frame again afterwards
+    with per-carrier noise, the max of the scan's own, the frame's decision
+    residual, the pilots' temporal diffs interpolated onto the data
+    carriers, and half the instantaneous residual: the plan's DC-adjacent
+    carriers carry a deterministic ICI floor that the scalar pilot noise
+    averages away (demodulator.py:1258-1318 of the JAX package)."""
     B, S, L = data.shape
     dev = data.device
     has_pilots = len(carriers_mod.carrier_map(config).pilot_idx) > 0
     adaptive = config.adaptive_eq_enabled and not is_differential(mod)
-    Cd = _carrier_consts(config, dev)[0].shape[0]
-    if bins_w is None:
-        bins_w = _bins_w_on(config, L, dev)
+    data_idx, _, _, pilot_seq = _carrier_consts(config, dev)
+    Cd = data_idx.shape[0]
+    ic, taper = _scan_windows(mod, front)
+    hi_pilots = _hi_order(mod) and has_pilots
     t = t0_base + torch.arange(S * L, dtype=torch.int32, device=dev)
     osc = mixer_ops.osc_int(config.center_freq, config.sample_rate,
                             t).reshape(S, L)
-    llrs = []
+    llrs, eqs, cnvs, h_lss, hp_ds = [], [], [], [], []
     for s in range(S):
         fd, state = to_baseband_fd(config, state, data[:, s], t0_base + s * L,
+                                   image_cancel=ic, taper=taper,
                                    bins_w=bins_w, osc=osc[s])
         if has_pilots:
             state = update_channel_estimate(config, state, fd)
         eq, cnv = equalize(config, mod, state, fd)
         if adaptive:
             state = dd_update(config, mod, state, fd[:, :Cd], eq)
-        sym_llrs, state = demodulate_symbol(config, mod, state, eq, cnv)
-        llrs.append(sym_llrs)
-    return state, torch.stack(llrs, dim=1).reshape(B, -1)
+        if hi_pilots:
+            # The coherent per-symbol LLRs are replaced below, and
+            # demodulate_symbol changes no state for a coherent mod.
+            eqs.append(eq)
+            cnvs.append(cnv)
+            h_lss.append(fd[:, Cd:] / pilot_seq[None, :])
+            hp_ds.append(state.channel_estimate[:, data_idx].abs() ** 2)
+        else:
+            sym_llrs, state = demodulate_symbol(config, mod, state, eq, cnv)
+            llrs.append(sym_llrs)
+    if not hi_pilots:
+        return state, torch.stack(llrs, dim=1).reshape(B, -1)
+
+    eq = torch.stack(eqs, dim=1)                          # [B, S, Cd]
+    cnv = torch.stack(cnvs, dim=1)
+    d = demap_ops.hard_decision(mod, eq)
+    live = host_table(dev, _live_carrier_mask, mod, S, Cd, n_bits)[None]
+    cnt = torch.clamp(live.sum(1, keepdim=True), min=1.0)
+    r = ((eq - d).abs() ** 2 * live).sum(1, keepdim=True) / cnt
+
+    h_ls = torch.stack(h_lss, dim=1)                      # [B, S, Np]
+    pd = (torch.diff(h_ls, dim=1).abs() ** 2).mean(1)     # [B, Np]
+    Wn = host_table(dev, _pilot_to_data_interp, config)     # [Cd, Np]
+    pn_d = pd @ Wn.T                                      # [B, Cd]
+    hp = torch.clamp(torch.stack(hp_ds, dim=1).mean(1), min=1e-12)
+    pcnv = (pn_d / hp)[:, None, :]
+
+    inst = 0.5 * (eq - d).abs() ** 2
+    nv_eff = torch.clamp(
+        torch.maximum(torch.maximum(torch.maximum(r, pcnv), cnv), inst),
+        MIN_CARRIER_NOISE_VAR, MAX_CARRIER_NOISE_VAR) \
+        * demap_ops.CE_MARGIN.get(mod, 1.0)
+    return state, demap_ops.demap(mod, eq, nv_eff).reshape(B, -1)
+
+
+def _demod_coherent_refined(config: ModemConfig, mod: Modulation,
+                            state: DemodState, data: torch.Tensor,
+                            t0_base: int, front: str = "analytic",
+                            n_bits: int | None = None,
+                            taper: bool | None = None,
+                            bins_w=None) -> torch.Tensor:
+    """Two-pass no-pilot coherent demod with decision-directed channel
+    refinement (demodulator.py:787-940 of the JAX package): [B, S, L] data
+    symbols -> LLRs [B, S*Cd*bits].
+
+    Every symbol's used bins (per-symbol ``to_baseband_fd``, a Python loop
+    carrying the CFO phase), then a dual second-order decision-directed
+    PLL over the symbols (common phase and per-bin timing slope, a Python
+    loop), the tracked slope taken out of the bins, and three alternating
+    rank-1 LS fits fd ~ g[s] h[c] d[s,c] against hard decisions (ZF for
+    the decisions).  The LLRs are MMSE with per-carrier noise from the
+    decision residual over the frame.  Carriers the TX left empty
+    (``n_bits``) feed none of the fits.  ``taper`` follows the caller's
+    window choice (default: Tukey unless ``front == "real"``)."""
+    B, S, L = data.shape
+    dev = data.device
+    data_idx = _carrier_consts(config, dev)[0]
+    Cd = data_idx.shape[0]
+    if taper is None:
+        taper = front != "real"
+    ic = _hi_order(mod) and QAM256_RX == "real" and front != "real"
+
+    t = t0_base + torch.arange(S * L, dtype=torch.int32, device=dev)
+    osc = mixer_ops.osc_int(config.center_freq, config.sample_rate,
+                            t).reshape(S, L)
+    h = state.channel_estimate[:, data_idx][:, None, :]   # [B, 1, Cd]
+    nv = state.noise_variance[:, None, None]
+    fds = []
+    for s in range(S):
+        fd, state = to_baseband_fd(config, state, data[:, s], t0_base + s * L,
+                                   image_cancel=ic, taper=taper,
+                                   bins_w=bins_w, osc=osc[s])
+        fds.append(fd[:, :Cd])
+    fd = torch.stack(fds, dim=1)                          # [B, S, Cd]
+    live = host_table(dev, _live_carrier_mask, mod, S, Cd, n_bits)[None]
+
+    # Dual decision-directed PLL: common phase (CFO residual) and per-bin
+    # phase slope (symbol-timing drift from a sample-clock offset), both
+    # second order, seeding the per-symbol gain g.
+    h2 = h[:, 0, :]                                       # [B, Cd]
+    hp2 = torch.clamp(h2.abs() ** 2, min=1e-12)
+    kbin = host_table(dev, _used_bins_k, config)[:Cd]       # signed bins
+    phi = torch.zeros((B,), dtype=torch.float32, device=dev)
+    om, psi, ups = phi, phi, phi
+    phis, psis = [], []
+    for s in range(S):
+        fd_s, m_s = fd[:, s], live[:, s]                  # [B, Cd], [1, Cd]
+        ang = phi[:, None] + psi[:, None] * kbin[None, :]
+        z = fd_s * torch.polar(torch.ones_like(ang), -ang)
+        d_s = demap_ops.hard_decision(mod, z * h2.conj() / hp2)
+        e = z * (h2 * d_s).conj() * m_s
+        ec = e.sum(-1)
+        err = torch.atan2(ec.imag, ec.real)
+        th = e * torch.polar(torch.ones_like(err), -err)[:, None]
+        resid_ph = torch.atan2(th.imag, th.real)
+        w = e.abs()
+        err_s = ((w * resid_ph * kbin[None, :]).sum(-1)
+                 / torch.clamp((w * kbin[None, :] ** 2).sum(-1), min=1e-12))
+        om = om + 0.05 * err
+        phis.append(phi + err)                            # best phase for s
+        phi = phi + om + 0.3 * err
+        ups = ups + 0.05 * err_s
+        psis.append(psi + err_s)                          # best slope for s
+        psi = psi + ups + 0.3 * err_s
+    slope = torch.stack(psis, dim=1)[:, :, None] * kbin[None, None, :]
+    fd = fd * torch.polar(torch.ones_like(slope), -slope)
+    phis = torch.stack(phis, dim=1)
+    g = torch.polar(torch.ones_like(phis), phis)[:, :, None]  # [B, S, 1]
+
+    d = None
+    for _ in range(3):
+        G = g * h
+        Gp = torch.clamp(G.abs() ** 2, min=1e-12)
+        d = demap_ops.hard_decision(mod, fd * G.conj() / Gp) * live
+        hd = h * d
+        g = ((fd * hd.conj()).sum(-1, keepdim=True)
+             / torch.clamp((hd.abs() ** 2).sum(-1, keepdim=True), min=1e-30))
+        gd = g * d
+        h = ((fd * gd.conj()).sum(1, keepdim=True)
+             / torch.clamp((gd.abs() ** 2).sum(1, keepdim=True), min=1e-30))
+
+    # Honest per-carrier noise from the decision residual: the lowest
+    # carriers carry far more residual image and ringing than the median,
+    # and their LLRs must deflate to their true reliability.
+    G = g * h
+    resid = (fd - G * d) * live
+    cnt = torch.clamp(live.sum(1, keepdim=True), min=1.0)
+    r = (resid.abs() ** 2).sum(1, keepdim=True) / cnt     # [B, 1, Cd]
+    r = torch.maximum(r, 0.25 * nv)
+
+    hp = G.abs() ** 2
+    eq = G.conj() * fd / torch.clamp(hp + nv, min=1e-30)
+    cnv = torch.clamp(r / (hp + 1e-6), MIN_CARRIER_NOISE_VAR,
+                      MAX_CARRIER_NOISE_VAR)
+    nv_eff = cnv * demap_ops.CE_MARGIN.get(mod, 1.0)
+    return demap_ops.demap(mod, eq, nv_eff).reshape(B, -1)
 
 
 # ---------------------------------------------------------------------------
 # Routing and entry points
 # ---------------------------------------------------------------------------
 
-def _check_branch(config: ModemConfig, mod: Modulation) -> None:
-    """Raise NotImplementedError for the branches not ported yet."""
-    if mod in (Modulation.QAM64, Modulation.QAM256):
-        raise NotImplementedError(
-            f"{mod.name}: the Tukey analysis window, conjugate-image "
-            f"cancellation and the high-order noise estimators {_SLICE4}")
-    if _refined_path(config, mod):
-        raise NotImplementedError(
-            f"{mod.name} on a no-pilot plan: the coherent refined path "
-            f"(_demod_coherent_refined) {_SLICE4}")
-
-
 def _refined_path(config: ModemConfig, mod: Modulation) -> bool:
+    """Every coherent mod on a no-pilot plan takes the refined path, unless
+    the adaptive equalizer is on (then the scan, as in JAX)."""
     return (not is_differential(mod)
             and len(carriers_mod.carrier_map(config).pilot_idx) == 0
             and not config.adaptive_eq_enabled)
@@ -760,18 +1067,48 @@ def _fast_path(config: ModemConfig, mod: Modulation) -> bool:
 def demodulate_with_lts(config: ModemConfig, mod: Modulation,
                         lts: torch.Tensor, data: torch.Tensor, cfo_hz,
                         initial_phase, t0_lts: int = 0, t0_data: int = 0,
-                        t0_lts_stride: int | None = None):
-    """LTS channel estimate + data scan for pre-sliced segments (the Cox
-    receivers): lts [B, n_sym, L], data [B, S, sym_len], both cut from the
-    same ``maybe_analytic``-converted span.  Returns (llrs, state)."""
-    _check_branch(config, mod)
+                        t0_lts_stride: int | None = None,
+                        front: str = "analytic", n_bits: int | None = None):
+    """LTS channel estimate + data demodulation for pre-sliced segments
+    (the Cox receivers): lts [B, n_sym, L], data [B, S, sym_len], both cut
+    from the same ``maybe_analytic``-converted span.  QAM64 and QAM256 use
+    the Tukey window for the LTS and the data (image cancellation at
+    QAM256 with ``QAM256_RX == "real"``); ``front="real"`` keeps the rect
+    window.  Coherent mods on no-pilot plans take the refined path, the
+    rest the scan.  Returns (llrs, state)."""
+    ic, taper = _scan_windows(mod, front)
     state = init_state(config, lts.shape[0], cfo_hz, initial_phase,
                        lts.device)
     state = estimate_channel_from_lts(config, state, lts, t0_base=t0_lts,
-                                      t0_stride=t0_lts_stride)
+                                      t0_stride=t0_lts_stride,
+                                      image_cancel=ic, taper=taper)
+    if _refined_path(config, mod):
+        llrs = _demod_coherent_refined(config, mod, state, data,
+                                       t0_base=t0_data, front=front,
+                                       n_bits=n_bits, taper=taper)
+        return llrs, state
     state, llrs = _scan_data_symbols(config, mod, state, data,
-                                     t0_base=t0_data)
+                                     t0_base=t0_data, front=front,
+                                     n_bits=n_bits)
     return llrs, state
+
+
+def _span_segments(config: ModemConfig, mod: Modulation, span: torch.Tensor,
+                   n_lts: int, S: int, lead: int, tail: int, front: str):
+    """(lts [B, n_lts, plen], data [B, S, symbol]) of a [B, T] real span
+    that starts ``lead`` samples before the first LTS, after the analytic
+    conversion of coherent mods (margins tapered first)."""
+    if front == "real":
+        span = span.to(torch.complex64)
+    else:
+        span = maybe_analytic(mod, _edge_tapered(mod, span, lead, tail))
+    plen = config.fft_size + config.cyclic_prefix
+    B = span.shape[0]
+    lts = span[:, lead:lead + n_lts * plen].reshape(B, n_lts, plen)
+    d0 = n_lts * plen
+    data = span[:, lead + d0:lead + d0 + S * config.symbol_duration].reshape(
+        B, S, config.symbol_duration)
+    return lts, data
 
 
 def demodulate_span(config: ModemConfig, mod: Modulation, span: torch.Tensor,
@@ -785,29 +1122,72 @@ def demodulate_span(config: ModemConfig, mod: Modulation, span: torch.Tensor,
     are tapered (``_edge_tapered``); ``front="real"`` keeps the real
     passband.  The Cox preamble mixed ONE LTS at [plen, 2*plen) and
     repeated it, so every LTS demixes at t0 = plen (stride 0) and the data
-    at 2*plen.  ``n_bits`` only matters to the high-order branch, which is
-    not ported; it is accepted for the JAX signature."""
-    if front == "real":
-        span = span.to(torch.complex64)
-    else:
-        span = maybe_analytic(mod, _edge_tapered(mod, span, lead, tail))
+    at 2*plen.  ``n_bits`` (the frame's coded bits) masks the carriers the
+    TX left empty out of the refits and noise estimates."""
+    lts, data = _span_segments(config, mod, span, n_lts, S, lead, tail, front)
     plen = config.fft_size + config.cyclic_prefix
-    B = span.shape[0]
-    lts = span[:, lead:lead + n_lts * plen].reshape(B, n_lts, plen)
-    d0 = n_lts * plen
-    data = span[:, lead + d0:lead + d0 + S * config.symbol_duration].reshape(
-        B, S, config.symbol_duration)
     return demodulate_with_lts(config, mod, lts, data, cfo_hz, initial_phase,
-                               t0_lts=plen, t0_data=d0, t0_lts_stride=0)
+                               t0_lts=plen, t0_data=n_lts * plen,
+                               t0_lts_stride=0, front=front, n_bits=n_bits)
+
+
+def equalized_symbols(config: ModemConfig, mod: Modulation,
+                      lts: torch.Tensor, data: torch.Tensor, cfo_hz,
+                      initial_phase, t0_lts: int = 0, t0_data: int = 0,
+                      t0_lts_stride: int | None = None,
+                      front: str = "analytic") -> torch.Tensor:
+    """Equalized constellation points [B, S, C] complex64 for observability
+    (OFDMDemodulator::getConstellationSymbols): the scan of
+    ``demodulate_with_lts``, returning the equalizer output instead of
+    LLRs (the scan on every plan, as in JAX)."""
+    ic, taper = _scan_windows(mod, front)
+    L = data.shape[-1]
+    state = init_state(config, lts.shape[0], cfo_hz, initial_phase,
+                       lts.device)
+    state = estimate_channel_from_lts(config, state, lts, t0_base=t0_lts,
+                                      t0_stride=t0_lts_stride,
+                                      image_cancel=ic, taper=taper)
+    has_pilots = len(carriers_mod.carrier_map(config).pilot_idx) > 0
+    adaptive = config.adaptive_eq_enabled and not is_differential(mod)
+    Cd = n_data_bins(config)
+    eqs = []
+    for s in range(data.shape[1]):
+        fd, state = to_baseband_fd(config, state, data[:, s], t0_data + s * L,
+                                   image_cancel=ic, taper=taper)
+        if has_pilots:
+            state = update_channel_estimate(config, state, fd)
+        eq, cnv = equalize(config, mod, state, fd)
+        if adaptive:
+            state = dd_update(config, mod, state, fd[:, :Cd], eq)
+        _, state = demodulate_symbol(config, mod, state, eq, cnv)
+        eqs.append(eq)
+    return torch.stack(eqs, dim=1)
+
+
+def equalized_symbols_span(config: ModemConfig, mod: Modulation,
+                           span: torch.Tensor, cfo_hz, initial_phase,
+                           n_lts: int, S: int, lead: int = 0, tail: int = 0,
+                           front: str = "analytic") -> torch.Tensor:
+    """Constellation variant of ``demodulate_span`` -> [B, S, C, 2] f32
+    (real, imag), the JAX function's layout."""
+    lts, data = _span_segments(config, mod, span, n_lts, S, lead, tail, front)
+    plen = config.fft_size + config.cyclic_prefix
+    eq = equalized_symbols(config, mod, lts, data, cfo_hz, initial_phase,
+                           t0_lts=plen, t0_data=n_lts * plen,
+                           t0_lts_stride=0, front=front)
+    return torch.stack([eq.real, eq.imag], dim=-1)
 
 
 class Demodulator(nn.Module):
     """Presynced demodulator for frames of ``training_symbols`` LTS symbols
     and ``num_data_symbols`` data symbols, routed as the JAX
     ``demodulate_presynced``: differential modulations on no-pilot plans
-    take the all-symbols-at-once fast path, everything else the
-    pilot-tracking scan.  Buffers: ``lts_wr``/``lts_wi`` [L, Cu] (the
-    analysis rows of the LTS and of the scan's data symbols) and
+    take the all-symbols-at-once fast path, coherent ones the refined path
+    (unless the adaptive equalizer is on), everything else the
+    pilot-tracking scan.  As in JAX, the LTS and the refined path use the
+    Tukey window only at QAM256, the scan at QAM64 and QAM256.  Buffers:
+    ``lts_wr``/``lts_wi`` [L, Cu] (the rectangular analysis rows of the
+    LTS and the data symbols; the Tukey rows are looked up by device) and
     ``analysis_r``/``analysis_i`` [S, L, C] (the fast path's data analysis
     tensor)."""
 
@@ -815,11 +1195,11 @@ class Demodulator(nn.Module):
                  training_symbols: int, num_data_symbols: int,
                  bins_w=None, analysis=None):
         super().__init__()
-        _check_branch(config, mod)
         self.config, self.mod = config, mod
         self.training_symbols = training_symbols
         self.num_data_symbols = num_data_symbols
         self.fast = _fast_path(config, mod)
+        self.refined = _refined_path(config, mod)
         L = config.symbol_duration
         Wr, Wi = bins_w if bins_w is not None else _used_bins_w(config, L)
         Mr, Mi = analysis if analysis is not None else _analysis_tensor(
@@ -835,19 +1215,27 @@ class Demodulator(nn.Module):
         B = samples.shape[0]
         L = self.config.symbol_duration
         Tr, S = self.training_symbols, self.num_data_symbols
+        q256 = self.mod == Modulation.QAM256
         samples = maybe_analytic(self.mod, samples)
         state = init_state(self.config, B, cfo_hz, initial_phase,
                            samples.device)
         bins_w = (self.lts_wr, self.lts_wi)
         if Tr > 0:
             tr = samples[:, :Tr * L].reshape(B, Tr, L)
-            state = estimate_channel_from_lts(self.config, state, tr,
-                                              bins_w=bins_w)
+            state = estimate_channel_from_lts(
+                self.config, state, tr,
+                image_cancel=q256 and QAM256_RX == "real", taper=q256,
+                bins_w=bins_w)
         data = samples[:, Tr * L:(Tr + S) * L].reshape(B, S, L)
         if self.fast:
             llrs = _demod_differential_parallel(
                 self.config, self.mod, state, data,
                 (self.analysis_r, self.analysis_i), any_cfo(cfo_hz))
+            return llrs, state
+        if self.refined:
+            llrs = _demod_coherent_refined(self.config, self.mod, state,
+                                           data, t0_base=Tr * L, taper=q256,
+                                           bins_w=bins_w)
             return llrs, state
         state, llrs = _scan_data_symbols(self.config, self.mod, state, data,
                                          t0_base=Tr * L, bins_w=bins_w)
@@ -878,3 +1266,9 @@ def demodulate_presynced(config: ModemConfig, mod: Modulation,
     demod = _demodulator_for(config, mod, training_symbols, num_data_symbols,
                              samples.device)
     return demod(samples, cfo_hz, initial_phase)
+
+
+def num_symbols_for_bits(config: ModemConfig, mod: Modulation,
+                         nbits: int) -> int:
+    per_sym = n_data_bins(config) * bits_per_symbol(mod)
+    return -(-nbits // per_sym)

@@ -175,16 +175,18 @@ def _preamble_on(config: ModemConfig, device: torch.device) -> torch.Tensor:
 
 
 def tx_cox_frame(config: ModemConfig, mod: Modulation, rate: CodeRate,
-                 info_bits: torch.Tensor, lead: int = 0,
-                 tail: int = 0) -> torch.Tensor:
-    """[B, k] info bits -> [B, lead + 7*(N+CP) + S*symbol + tail] float32
-    Schmidl-Cox frames as the JAX bench builds them (bench.py:304-321):
-    ``lead`` zeros, the preamble, one interleaved codeword modulated from
+                 info_bits: torch.Tensor, lead: int = 0, tail: int = 0,
+                 n_codewords: int = 1) -> torch.Tensor:
+    """[B, ncw*k] info bits -> [B, lead + 7*(N+CP) + S*symbol + tail]
+    float32 Schmidl-Cox frames as the JAX bench and tests build them
+    (bench.py:304-321, tests/test_delay_fit.py:32-46): ``lead`` zeros, the
+    preamble, the frame's interleaved codewords modulated from
     ``preamble_data_t_offset``, ``tail`` zeros."""
     B, dev = info_bits.shape[0], info_bits.device
-    pipe = pipeline_for(config, mod, rate, 1, dev)
-    cw = ldpc_ops.encode_with(pipe.code, info_bits)[:, pipe.interleave_inv]
-    data = mod_mod.modulate(config, mod, cw,
+    pipe = pipeline_for(config, mod, rate, n_codewords, dev)
+    cw = ldpc_ops.encode_with(pipe.code, info_bits.reshape(
+        B * n_codewords, pipe.code.k))[:, pipe.interleave_inv]
+    data = mod_mod.modulate(config, mod, cw.reshape(B, -1),
                             t_offset=mod_mod.preamble_data_t_offset(config))
     pre = _preamble_on(config, dev)
     return torch.cat([torch.zeros((B, lead), device=dev),

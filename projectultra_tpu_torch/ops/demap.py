@@ -8,8 +8,10 @@ first).  LLR convention: positive = bit 0.
 
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 
 from ..config import Modulation
@@ -36,9 +38,21 @@ QAM256_D8 = 0.5163978
 _WEAK = 1e-6
 
 
-def _const(x, like: torch.Tensor) -> torch.Tensor:
-    """Host constant (numpy or scalar) as a tensor on ``like``'s device."""
-    return torch.as_tensor(x, device=like.device)
+@functools.lru_cache(maxsize=None)
+def _points_on(mod: Modulation, device: torch.device) -> torch.Tensor:
+    """The constellation of ``mod`` on ``device``, made once per device: a
+    host-to-device copy on every call would synchronise the stream."""
+    return torch.as_tensor(con.table(mod), device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _qam32_on(device: torch.device):
+    """(points [32] c64, bit masks [5, 32] bool) of the QAM32 demapper on
+    ``device``."""
+    pts, bits = con.qam32_points_and_bits()
+    masks = [(bits & (1 << (4 - b))) != 0 for b in range(5)]
+    return (torch.as_tensor(pts, device=device),
+            torch.as_tensor(np.stack(masks), device=device))
 
 
 def clip_llr(llr: torch.Tensor) -> torch.Tensor:
@@ -52,7 +66,7 @@ def clip_llr(llr: torch.Tensor) -> torch.Tensor:
 
 def hard_decision(mod: Modulation, sym: torch.Tensor) -> torch.Tensor:
     """Nearest constellation point per symbol."""
-    pts = _const(con.table(mod), sym)
+    pts = _points_on(mod, sym.device)
     d2 = (torch.square(sym.real[..., None] - pts.real)
           + torch.square(sym.imag[..., None] - pts.imag))
     return pts[torch.argmin(d2, dim=-1)]
@@ -82,13 +96,13 @@ def demap_qam16(sym, nv):
 def demap_qam32(sym, nv):
     """Brute-force max-log-MAP over the 32-point constellation
     (soft_demap.hpp:68-121)."""
-    pts_np, bits = con.qam32_points_and_bits()
-    d2 = (sym[..., None] - _const(pts_np, sym)).abs() ** 2    # [..., 32]
+    pts, masks = _qam32_on(sym.device)
+    d2 = (sym[..., None] - pts).abs() ** 2                    # [..., 32]
     s = 2.0 / nv
-    inf = torch.tensor(math.inf, dtype=d2.dtype, device=d2.device)
+    inf = torch.full((), math.inf, dtype=d2.dtype, device=d2.device)
     llrs = []
     for b in range(5):
-        mask = _const((bits & (1 << (4 - b))) != 0, sym)
+        mask = masks[b]
         d1 = torch.where(mask, d2, inf).amin(-1)
         d0 = torch.where(mask, inf, d2).amin(-1)
         llrs.append(s * (d1 - d0))

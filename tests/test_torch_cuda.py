@@ -24,6 +24,13 @@ card): detection on the card equals the CPU path (success and positions
 identical, cfo within 1e-3 Hz); the bench's chirp step goes through the
 LDPC kernel and never synchronises; OFDM_CHIRP decodes behind a detected
 chirp; ``watterson_with`` on the card equals the CPU on the same normals.
+
+The rest of the PHY: the window kernel at half = 512 (the 1,024-FFT
+plans); the LDPC kernel lane-exact at R3/4 and R5/6 (with and without
+trap_escape), on NVIS R5/6 LLRs and on DPSK ``robust``'s -11 dB R1/4
+LLRs; the NVIS, DPSK, MFSK and OTFS receiver steps through the kernels and
+equal to the CPU path lane for lane; the delay fit's LLRs on the card
+within rtol 1e-3, atol 2e-3 of the CPU.
 """
 
 import os
@@ -513,3 +520,159 @@ def test_watterson_with_on_the_card_equals_the_cpu(dev, preset):
     out = TW.watterson_with(x, cfg, fade, awgn)
     ref = TW.watterson_with(x.cpu(), cfg, fade.cpu(), awgn.cpu())
     assert float((out.cpu() - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# The rest of the PHY: NVIS coherent, DPSK, delay fit, MFSK, OTFS
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("stride,offset", [(1, 0), (1, 96), (8, 96)])
+def test_window_kernel_equals_plain_at_half_512(dev, stride, offset):
+    """The 1,024-FFT plans' half = 512 (nvis_mode, high_throughput)."""
+    a = _analytic_on(dev, 9, 15080, seed=stride)
+    G = (15080 - 2 * 512 - offset) // stride + 1
+    _assert_windows_close(a, 512, stride, offset, G)
+    _assert_windows_close(a, 512, stride, offset, min(G, 700))
+
+
+@pytest.mark.parametrize("rate,sigma", [(CodeRate.R3_4, 0.5),
+                                        (CodeRate.R5_6, 0.45)])
+def test_kernel_equals_plain_at_high_rates(dev, rate, sigma):
+    _assert_kernel_equals_plain(rate, _noisy_llr(rate, sigma, 513), dev)
+    _assert_kernel_equals_plain(rate, _noisy_llr(rate, sigma, 513), dev,
+                                trap_escape=True)
+
+
+def _nvis_buffers(dev, mod, rate, snr_db, B, ncw=1, seed=6):
+    from projectultra_tpu_torch.config import nvis_mode
+    cfg = nvis_mode()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    info = torch.randint(0, 2, (B, ncw * ldpc.get_code(rate).k),
+                         generator=g, device=dev, dtype=torch.uint8)
+    tx = TP.tx_cox_frame(cfg, mod, rate, info, lead=3000, tail=2000,
+                         n_codewords=ncw)
+    rx = TW.add_noise_active(TW.apply_cfo_hilbert(tx, 10.0), snr_db, g)
+    return cfg, info, rx
+
+
+@pytest.mark.parametrize("mod,rate,snr,ncw", [
+    (Modulation.QAM32, CodeRate.R3_4, 30.0, 1),
+    (Modulation.QAM256, CodeRate.R5_6, 42.0, 1),
+    (Modulation.QAM256, CodeRate.R5_6, 42.0, 4)])
+def test_nvis_step_on_the_card_equals_the_cpu(dev, mod, rate, snr, ncw):
+    """decode_cox_batch on NVIS frames goes through both kernels (the
+    windows at half = 512) and equals the CPU path lane for lane."""
+    cfg, info, rx = _nvis_buffers(dev, mod, rate, snr, 16, ncw)
+    sc0, ldpc0 = cuda_sc.launches, cuda_ldpc.launches
+    out, ok, iters, det = TSC.decode_cox_batch(cfg, mod, rate, rx, ncw)
+    assert cuda_sc.launches > sc0 and cuda_ldpc.launches > ldpc0
+    cpu = TSC.decode_cox_batch(cfg, mod, rate, rx.cpu(), ncw)
+    assert torch.equal(det["lts_start"].cpu(), cpu[3]["lts_start"])
+    assert torch.equal(iters.cpu() < 50, cpu[2] < 50)
+    both = ok.cpu() & cpu[1]
+    assert torch.equal(out.cpu()[both], cpu[0][both])
+    assert torch.equal(out[ok], info[ok])
+    if ncw == 1:
+        assert ok.all()
+
+
+def test_kernel_equals_plain_on_nvis_llrs(dev):
+    cfg, _, rx = _nvis_buffers(dev, Modulation.QAM256, CodeRate.R5_6, 42.0,
+                               32)
+    det = TSC.detect_preamble(cfg, rx)
+    pipe = TP.pipeline_for(cfg, Modulation.QAM256, CodeRate.R5_6, 1, dev)
+    llrs = pipe.deinterleave(TSC.demodulate_detected(
+        cfg, Modulation.QAM256, rx, det)).cpu().numpy()
+    _assert_kernel_equals_plain(CodeRate.R5_6, llrs, dev)
+
+
+def test_dpsk_robust_step_on_the_card(dev):
+    """decode_dpsk_batch at -11 dB (robust) through the LDPC kernel, the
+    kernel equal to plain on its LLRs, and the card equal to the CPU."""
+    from projectultra_tpu_torch.psk import dpsk as TD
+    cfg = TD.robust()
+    g = torch.Generator(device=dev).manual_seed(3)
+    info = torch.randint(0, 2, (4, 162), generator=g, device=dev,
+                         dtype=torch.uint8)
+    cw = T.encode(ldpc.get_code(CodeRate.R1_4), info)
+    pre = torch.from_numpy(TD.generate_preamble(cfg)).to(dev)
+    tx = torch.cat([torch.zeros((4, 4800), device=dev), pre.expand(4, -1),
+                    TD.modulate(cfg, cw), torch.zeros((4, 4000), device=dev)],
+                   dim=-1)
+    rx = TW.add_noise_active(tx, -11.0, g)
+    before = cuda_ldpc.launches
+    out, ok, _, det = TD.decode_dpsk_batch(cfg, CodeRate.R1_4, rx)
+    assert cuda_ldpc.launches > before
+    cpu = TD.decode_dpsk_batch(cfg, CodeRate.R1_4, rx.cpu())
+    assert torch.equal(det["data_start"].cpu(), cpu[3]["data_start"])
+    assert torch.equal(ok.cpu(), cpu[1])
+    assert torch.equal(out[ok], info[ok])
+    found, ds, cfo, ipo, prev = TD.find_preamble(cfg, rx)
+    span = TC.frame_spans(rx, ds, 648 * 1536)
+    llrs = TD.demodulate_soft(cfg, span, prev, cfo, ipo)[:, :648]
+    _assert_kernel_equals_plain(CodeRate.R1_4, llrs.cpu().numpy(), dev)
+
+
+def test_mfsk_and_otfs_steps_on_the_card(dev):
+    """decode_mfsk_batch (medium, -4 dB) and decode_otfs_batch (20 dB)
+    through the LDPC kernel, equal to the CPU path."""
+    from projectultra_tpu_torch.otfs import otfs as TO
+    from projectultra_tpu_torch.psk import fsk as TF
+    g = torch.Generator(device=dev).manual_seed(4)
+    code = ldpc.get_code(CodeRate.R1_4)
+    info = torch.randint(0, 2, (8, code.k), generator=g, device=dev,
+                         dtype=torch.uint8)
+    cw = T.encode(code, info)
+    cfg = TF.mfsk_medium()
+    pre = torch.from_numpy(TF.mfsk_generate_preamble(cfg)).to(dev)
+    rx = TW.add_noise_active(torch.cat([
+        torch.zeros((8, 5000), device=dev), pre.expand(8, -1),
+        TF.mfsk_modulate(cfg, cw), torch.zeros((8, 4000), device=dev)],
+        dim=-1), -4.0, g)
+    before = cuda_ldpc.launches
+    out, ok, _, found, ds = TF.decode_mfsk_batch(cfg, CodeRate.R1_4, rx)
+    assert cuda_ldpc.launches > before
+    cpu = TF.decode_mfsk_batch(cfg, CodeRate.R1_4, rx.cpu())
+    assert torch.equal(ds.cpu(), cpu[4]) and torch.equal(ok.cpu(), cpu[1])
+    assert ok.all() and torch.equal(out, info)
+
+    ocfg = TO.OTFSConfig()
+    tx = TO.frame_tx(ocfg, Modulation.QPSK, cw)
+    rx = TW.add_noise_active(torch.cat([
+        torch.zeros((8, 4000), device=dev), tx,
+        torch.zeros((8, 2000), device=dev)], dim=-1), 20.0, g)
+    before = cuda_ldpc.launches
+    out, ok, _, found, start = TO.decode_otfs_batch(ocfg, Modulation.QPSK,
+                                                    CodeRate.R1_4, rx)
+    assert cuda_ldpc.launches > before
+    cpu = TO.decode_otfs_batch(ocfg, Modulation.QPSK, CodeRate.R1_4, rx.cpu())
+    assert torch.equal(start.cpu(), cpu[4]) and torch.equal(ok.cpu(), cpu[1])
+    # Frames whose fine timing lands past the CP fail, in JAX alike
+    # (test_torch_otfs.py::test_late_fine_timing_lanes_match_jax).
+    assert torch.equal(out[ok], info[ok])
+
+
+def test_delayfit_on_the_card_equals_the_cpu(dev):
+    """The delay-fit second pass on a Watterson good() high_throughput
+    span: LLRs on the card within 2e-3 of the CPU."""
+    from projectultra_tpu_torch.config import high_throughput
+    from projectultra_tpu_torch.ofdm import delay_fit as TDF
+    cfg, mod = high_throughput(), Modulation.QAM16
+    g = torch.Generator(device=dev).manual_seed(5)
+    info = torch.randint(0, 2, (8, 8 * ldpc.get_code(CodeRate.R2_3).k),
+                         generator=g, device=dev, dtype=torch.uint8)
+    tx = TP.tx_cox_frame(cfg, mod, CodeRate.R2_3, info, lead=7200,
+                         tail=1152, n_codewords=8)
+    rx = TW.add_noise_active(TW.watterson(tx, TW.good(), g), 20.0, g)
+    det = TSC.detect_preamble(cfg, rx)
+    plen = cfg.fft_size + cfg.cyclic_prefix
+    S = TP.num_data_symbols(cfg, mod, 8)
+    span = TC.frame_spans(rx, det["lts_start"] - 2 * plen,
+                          5 * plen + S * cfg.symbol_duration)
+    args = dict(n_lts=2, S=S, lead=2 * plen, tail=plen, front="real",
+                n_bits=8 * 648)
+    got = TDF.demodulate_span_delayfit(cfg, mod, span, det["cfo_hz"], 0.0,
+                                       **args)
+    want = TDF.demodulate_span_delayfit(cfg, mod, span.cpu(),
+                                        det["cfo_hz"].cpu(), 0.0, **args)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=2e-3)

@@ -5,7 +5,8 @@ The port keeps copies of ``config``, ``fec.ldpc``, ``ofdm.carriers``,
 the JAX package.  Each copy is pinned here equal to its original: enums by
 name and value, ``ModemConfig`` by field and derived property, the LDPC
 code tables of every rate, the carrier tables, the constellations and the
-MT19937 streams.
+MT19937 streams; the speed-profile presets and ``for_profile`` field for
+field.
 """
 
 import dataclasses
@@ -33,7 +34,10 @@ from projectultra_tpu_torch.utils import mt19937 as TMT  # noqa: E402
 
 RATES = [JC.CodeRate.R1_4, JC.CodeRate.R1_2, JC.CodeRate.R2_3,
          JC.CodeRate.R3_4, JC.CodeRate.R5_6]
-ENUMS = ["Modulation", "CodeRate", "CyclicPrefixMode", "SpeedProfile"]
+ENUMS = ["Modulation", "CodeRate", "CyclicPrefixMode", "SpeedProfile",
+         "FrameType"]
+PRESETS = ["conservative", "balanced", "turbo", "high_throughput",
+           "nvis_mode"]
 PROPERTIES = ["cyclic_prefix", "symbol_duration", "symbol_rate",
               "num_pilots", "data_carriers"]
 
@@ -115,6 +119,23 @@ def test_modem_config_matches(name):
     assert port_config(ref) == ours
     assert ours.replace(fft_size=1024).cyclic_prefix \
         == ref.replace(fft_size=1024).cyclic_prefix
+
+
+@pytest.mark.parametrize("name", PRESETS)
+def test_preset_matches(name):
+    ours, ref = getattr(TC, name)(), getattr(JC, name)()
+    assert type(ours) is TC.ModemConfig
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert port_config(ref) == ours
+    for prop in PROPERTIES:
+        assert getattr(ours, prop) == getattr(ref, prop), prop
+
+
+@pytest.mark.parametrize("profile", list(JC.SpeedProfile))
+def test_for_profile_matches(profile):
+    ours = TC.for_profile(TC.SpeedProfile(int(profile)))
+    assert dataclasses.asdict(ours) == \
+        dataclasses.asdict(JC.for_profile(profile))
 
 
 @pytest.mark.parametrize("rate", RATES)

@@ -46,6 +46,10 @@ def test_port_modules_found():
                  "projectultra_tpu_torch.sync.chirp",
                  "projectultra_tpu_torch.psk",
                  "projectultra_tpu_torch.psk.mc_dpsk",
+                 "projectultra_tpu_torch.psk.dpsk",
+                 "projectultra_tpu_torch.psk.fsk",
+                 "projectultra_tpu_torch.otfs.otfs",
+                 "projectultra_tpu_torch.ofdm.delay_fit",
                  "projectultra_tpu_torch.config",
                  "projectultra_tpu_torch.fec.ldpc",
                  "projectultra_tpu_torch.ofdm.carriers",
