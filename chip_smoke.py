@@ -40,7 +40,12 @@ checks them:
   ``feed_audio``/``poll``: the reference CLI's five TX files, and a
   minute of a station's received traffic (MC-DPSK control frames, 11
   OFDM_COX QPSK R1/2 data frames of 100-1,000 bytes) built from a numpy
-  seed.
+  seed;
+* slice 7, the protocol stack and the CLI -- ``cli.main(argv,
+  device=cuda)``'s ``ptx`` and ``prx``, and two
+  ``ProtocolEngine(device=cuda)`` stations holding a session over the
+  air (connect, messages, a file, a mode change, disconnect) and a
+  second one over the Watterson channel.
 
 Phases:
 
@@ -64,8 +69,9 @@ Phases:
 7. runs the Cox path: ok rate >= 0.99 with exact info bits on ok lanes
    over 32 buffers, both kernels' launch counters grown, a 30 Hz CFO
    buffer at 20 dB by the same gate, and 64 lanes equal to the CPU path;
-   times it (frames/s, per stage, idle share) and the window kernel
-   against its plain version;
+   times it (frames/s, per stage, idle share), the window kernel
+   against its plain version and the LDPC kernel against the plain
+   decoder on a Cox buffer's LLRs (lane-exact, both timed);
 8. chirp detection on the card against the CPU path on 64 lanes of a
    5 dB chirp-cell buffer (success and every position identical, cfo
    within 1e-3 Hz);
@@ -113,7 +119,26 @@ Phases:
     engine's shapes (windows over one 262,144-sample search view, B = 1;
     LDPC at the stream's B = 1 and largest decodes, trap_escape) against
     their plain versions and timed.  Both kernels' launch counters must
-    grow in each run of the engine.
+    grow in each run of the engine;
+15. ``phase_protocol``: the port CLI's ``ptx`` of PING, CONNECT,
+    DISCONNECT and a text with ``-w ofdm``, ``dpsk`` and ``mcdpsk`` on the
+    card against the CPU port (audio within 2e-4, DPSK 5e-4; the same
+    report), and ``prx`` of the reference's five files (the same stderr);
+    then two ``ProtocolEngine`` stations on the card, each TX queued and
+    handed to the other station in order: a clean session (chirp
+    PING/PONG, MC-DPSK CONNECT, three messages each way, a 2,048-byte
+    numpy-seeded file, a requested MODE_CHANGE and a message after it, a
+    disconnect) and a lossy one (the Watterson ``moderate`` channel at
+    8 dB on the card from numpy normals, ten messages each way), each
+    under ``torch.profiler`` for the device's idle share.  Gates: the file byte-exact, every
+    message once and in order, the data modes of both ends equal after
+    the change, the clean session closed and the lossy one up, both
+    kernels launched in the clean session and the LDPC kernel in the
+    lossy one (counters set to 0 just before each session, read just
+    after).  Printed per session: wall seconds, seconds of audio
+    exchanged, transmissions each way, frames decoded, retransmissions,
+    transmit and receiving-poll ms; then the LDPC kernel at the sessions'
+    largest decode against the plain decoder and its bound.
 
 Beside the timings, every kernel is timed at each shape its paths give it
 (LDPC: R1/2 17 dB B = 16,384, the R1/2 sigma 0.62 waterfall batch of
@@ -136,10 +161,14 @@ output is one JSON object naming the device.  It imports nothing of jax.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from unittest import mock
@@ -152,7 +181,7 @@ from torch.profiler import ProfilerActivity, profile
 from projectultra_tpu_torch import (CodeRate, ModemConfig, Modulation,
                                     get_code, require_cuda)
 from projectultra_tpu_torch.config import high_throughput, nvis_mode
-from projectultra_tpu_torch import native
+from projectultra_tpu_torch import cli, native
 from projectultra_tpu_torch.fec.ldpc import DEFAULT_MAX_ITERS
 from projectultra_tpu_torch.modem.engine import ModemEngine
 from projectultra_tpu_torch.ofdm import delay_fit as DF
@@ -164,6 +193,7 @@ from projectultra_tpu_torch.ops import ldpc as ldpc_ops
 from projectultra_tpu_torch.ops.sc_windows import sc_windows_plain
 from projectultra_tpu_torch.otfs import otfs as OT
 from projectultra_tpu_torch.protocol import frame_v2 as F
+from projectultra_tpu_torch.protocol.engine import ProtocolEngine as PE
 from projectultra_tpu_torch.psk import dpsk as DP
 from projectultra_tpu_torch.psk import fsk as FS
 from projectultra_tpu_torch.psk import mc_dpsk as MCP
@@ -836,8 +866,9 @@ def cox_stages(rx_all: list) -> dict:
 def phase_cox_timing(dev: torch.device, card: str):
     """Cox frames/s (noise untimed, as the bench), stages, idle share, the
     window kernel against its plain version and its bound at strides 8 and
-    1, and the LDPC kernel on a Cox buffer's LLRs; returns (kernel ms, plain
-    ms, bound ms, basis) of the window kernel at stride 8."""
+    1, and the LDPC kernel on a Cox buffer's LLRs (against the plain
+    decoder, both timed); returns (kernel ms, plain ms, bound ms, basis) of
+    the window kernel at stride 8."""
     info, tx = cox_tx(dev, 12)
     g = torch.Generator(device=dev).manual_seed(14)
     decode_cox(tx)  # warm-up: per-device tables
@@ -886,7 +917,7 @@ def phase_cox_timing(dev: torch.device, card: str):
     det = SC.detect_preamble(COX_CFG, rx_all[0])
     llrs = pipe.deinterleave(SC.demodulate_detected(COX_CFG, MOD, rx_all[0],
                                                     det))
-    time_ldpc_shape("R1/2 17 dB Cox buffer", RATE, llrs.contiguous(), card)
+    ldpc_at_new_shape("R1/2 17 dB Cox buffer", RATE, llrs.contiguous(), card)
     return sc8
 
 
@@ -1936,6 +1967,18 @@ def traffic_audio(seed: int, seconds: float):
     return np.concatenate(pieces), expected, spans
 
 
+def recorded_decodes(decodes: list):
+    """A stand-in for ``frame_v2.decode_codewords_with_ldpc`` that records
+    each decode's (rate, LLR blocks) in ``decodes``."""
+    real = F.decode_codewords_with_ldpc
+
+    def recording(blocks, rate=CodeRate.R1_4, *, device):
+        decodes.append((rate, np.stack([np.asarray(b, np.float32)[:648]
+                                        for b in blocks])))
+        return real(blocks, rate, device=device)
+    return recording
+
+
 def phase_engine_traffic(dev: torch.device, card: str):
     """A minute of traffic through one receiving station (connected,
     handshake complete, OFDM_COX) on the card; returns ((rate, LLR
@@ -1951,18 +1994,12 @@ def phase_engine_traffic(dev: torch.device, card: str):
     engine.connected = engine.handshake_complete = True
     engine.set_waveform_mode(F.WaveformMode.OFDM_COX)
     decodes = []
-    real_decode = F.decode_codewords_with_ldpc
-
-    def recording(blocks, rate=CodeRate.R1_4, *, device):
-        decodes.append((rate, np.stack([np.asarray(b, np.float32)[:648]
-                                        for b in blocks])))
-        return real_decode(blocks, rate, device=device)
-
     split = ENGINE_CHUNK * (20 * 48000 // ENGINE_CHUNK)
     window = ENGINE_CHUNK * (PROFILE_WINDOW_S * 48000 // ENGINE_CHUNK)
     torch.cuda.synchronize()
     cuda_ldpc.launches = cuda_sc.launches = 0
-    with mock.patch.object(F, "decode_codewords_with_ldpc", recording):
+    with mock.patch.object(F, "decode_codewords_with_ldpc",
+                           recorded_decodes(decodes)):
         t0 = time.perf_counter()
         parts = [stream_through(engine, audio[:split], TRAFFIC_POLL_CHUNKS)]
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2066,6 +2103,340 @@ def phase_engine(dev: torch.device, card: str) -> None:
     print(f"phase_engine: {time.perf_counter() - t0!r} s", flush=True)
 
 
+
+# ---------------------------------------------------------------------------
+# Slice 7: the protocol stack and the CLI
+# ---------------------------------------------------------------------------
+
+CLI_MESSAGES = ["ping", "connect", "disconnect", "Hello CLI"]
+CLI_WAVEFORMS = ["ofdm", "dpsk", "mcdpsk"]
+# TX audio of the card against the CPU port: the golden TX tolerance, and
+# tests/test_torch_dpsk.py's for DPSK, whose float32 symbol phases
+# accumulate in another order.
+CLI_TX_TOL = {"ofdm": 2e-4, "dpsk": 5e-4, "mcdpsk": 2e-4}
+SESSION_GAP = 4000          # zeros after each TX (tests/test_protocol.py:336)
+SESSION_SNR_DB = 15.0       # the responder's measured SNR (test_protocol.py:335)
+SESSION_MESSAGES = 3
+SESSION_FILE_BYTES = 2048
+SESSION_SEED = 140
+LOSSY_SNR_DB = 8.0          # tests/test_protocol.py:449-500
+LOSSY_MESSAGES = 10
+LOSSY_SEED = 150
+LOSSY_TICK_MS = 5000
+
+
+def run_cli(argv: list, device: torch.device) -> tuple[int, str]:
+    """(return code, stderr) of the port's CLI on ``device``."""
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(argv, device=device)
+    return rc, err.getvalue()
+
+
+def phase_cli(dev: torch.device, card: str) -> None:
+    """``ptx`` of the four messages with the three waveforms on the card
+    against the CPU port (audio within CLI_TX_TOL, the same report), and
+    ``prx`` of the reference's five files on both (the same stderr)."""
+    cpu = torch.device("cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        for waveform in CLI_WAVEFORMS:
+            for msg in CLI_MESSAGES:
+                audio, report = {}, {}
+                for where, d in (("card", dev), ("cpu", cpu)):
+                    path = Path(tmp) / f"{where}.f32"
+                    rc, err = run_cli(["ptx", msg, "-s", "W1AW", "-d",
+                                       "VE3ABC", "-w", waveform, "-o",
+                                       str(path)], d)
+                    require(rc == 0, f"cli ptx {msg} -w {waveform}: rc {rc}")
+                    audio[where] = np.fromfile(path, dtype=np.float32)
+                    report[where] = err.replace(str(path), "<out>")
+                a, b = audio["card"], audio["cpu"]
+                err = float(np.abs(a - b).max()) if a.shape == b.shape \
+                    else float("inf")
+                print(f"cli ptx {msg!r} -w {waveform} on {card}: "
+                      f"{a.shape[0]} samples, max |card - cpu| {err!r}, "
+                      f"report equal {report['card'] == report['cpu']}",
+                      flush=True)
+                require(err <= CLI_TX_TOL[waveform]
+                        and report["card"] == report["cpu"],
+                        f"cli ptx {msg} -w {waveform}: the card differs "
+                        "from the CPU")
+    for name, _, want in REF_FILES:
+        argv = ["prx", str(GOLDEN / name), "-w",
+                "mcdpsk" if "dpsk" in name else "ofdm"]
+        t0 = time.perf_counter()
+        rc, err = run_cli(argv, dev)
+        wall = time.perf_counter() - t0
+        rc_c, err_c = run_cli(argv, cpu)
+        lines = [ln.strip() for ln in err.splitlines() if ln.strip()]
+        print(f"cli prx {name} ({want}) on {card} in {wall!r} s: {lines}",
+              flush=True)
+        require(rc == rc_c == 0 and err == err_c,
+                f"cli prx {name}: the card's report differs from the CPU's")
+        require("Frames: 1" in err or "PINGs: 1" in err,
+                f"cli prx {name}: nothing decoded")
+
+
+class Session:
+    """Two port stations on ``dev`` and the air between them: each TX is
+    queued, and ``pump`` hands the queue on in order, each TX through
+    ``channel(audio, n)`` (n counts the session's transmissions from 1)
+    into the other station's ``feed_audio``, so no station's poll runs
+    inside another's.  Records every TX, every frame each station
+    decodes, and the time of each ``transmit`` and of each receiving
+    ``poll`` (without the transmissions it triggers)."""
+
+    def __init__(self, dev: torch.device, channel, measured_snr: float):
+        self.a, self.b = PE(device=dev), PE(device=dev)
+        self.a.connection.set_local_callsign("W1AW")
+        self.b.connection.set_local_callsign("VE3ABC")
+        self.b.connection.set_measured_snr(measured_snr)
+        self.channel = channel
+        self.queue, self.tx = [], []
+        self.got = {"a": [], "b": []}
+        self.decoded = {"a": [], "b": []}
+        self.transmit_s, self.poll_s = [], []
+        for name, me, peer in (("a", self.a, self.b), ("b", self.b, self.a)):
+            me.on_tx_audio = (lambda audio, name=name, peer=peer:
+                              self.queue.append((name, peer, audio)))
+            me.connection.on_message_received = self.got[name].append
+            self._instrument(name, me)
+
+    def _instrument(self, name: str, station) -> None:
+        modem, inner = station.modem, [0.0]
+        on_frame = modem.on_frame
+
+        def frame(fr):
+            self.decoded[name].append(fr.header.type)
+            on_frame(fr)
+
+        def timed_tx(fn):
+            def call(*args):
+                t0 = time.perf_counter()
+                out = fn(*args)
+                dt = time.perf_counter() - t0
+                self.transmit_s.append(dt)
+                inner[0] += dt
+                return out
+            return call
+
+        poll = modem.poll
+
+        def timed_poll():
+            inner[0] = 0.0
+            t0 = time.perf_counter()
+            out = poll()
+            self.poll_s.append(time.perf_counter() - t0 - inner[0])
+            return out
+
+        modem.on_frame = frame
+        modem.transmit = timed_tx(modem.transmit)
+        modem.transmit_ping = timed_tx(modem.transmit_ping)
+        modem.poll = timed_poll
+
+    def pump(self) -> None:
+        while self.queue:
+            name, peer, audio = self.queue.pop(0)
+            self.tx.append((name, len(audio)))
+            peer.feed_audio(self.channel(audio, len(self.tx)))
+
+    def tick(self, ms: int) -> None:
+        self.a.tick(ms)
+        self.b.tick(ms)
+        self.pump()
+
+    def report(self, label: str, wall: float, card: str) -> None:
+        audio_s = sum(n for _, n in self.tx) / 48000.0
+        frames = {k: sum(1 for n, _ in self.tx if n == k) for k in "ab"}
+        retx = {k: s.connection.arq.stats.retransmissions
+                for k, s in (("a", self.a), ("b", self.b))}
+        kinds = {k: dict(Counter(F.FrameType(int(t)).name for t in v))
+                 for k, v in self.decoded.items()}
+        print(f"{label} on {card}: wall {wall!r} s, audio exchanged "
+              f"{audio_s!r} s, transmissions a->b {frames['a']}, b->a "
+              f"{frames['b']}; frames decoded by a {kinds['a']}, by b "
+              f"{kinds['b']}; retransmissions {retx}", flush=True)
+        print(f"{label} on {card}: transmit ms median "
+              f"{float(np.median(self.transmit_s)) * 1e3!r} "
+              f"({len(self.transmit_s)} calls), receiving poll ms median "
+              f"{float(np.median(self.poll_s)) * 1e3!r}, max "
+              f"{float(max(self.poll_s)) * 1e3!r} ({len(self.poll_s)} polls)",
+              flush=True)
+
+
+def clean_air(audio: np.ndarray, n: int) -> np.ndarray:
+    return np.concatenate([audio, np.zeros(SESSION_GAP, np.float32)])
+
+
+def watterson_air(dev: torch.device):
+    """The port's Watterson ``moderate`` channel at LOSSY_SNR_DB on the
+    card, 2,000 zeros before and 4,000 after each TX (test_protocol.py:
+    457-466), its normals drawn with numpy from (LOSSY_SEED, n)."""
+    cfg = W.moderate(LOSSY_SNR_DB)
+    paths = 2 if cfg.multipath_enabled and cfg.delay_spread_ms > 0 else 1
+
+    def channel(audio: np.ndarray, n: int) -> np.ndarray:
+        x = np.concatenate([np.zeros(2000, np.float32), audio,
+                            np.zeros(4000, np.float32)])
+        rng = np.random.default_rng([LOSSY_SEED, n])
+        fade = rng.standard_normal((2, 1, paths, len(x)), dtype=np.float32)
+        noise = rng.standard_normal((1, len(x)), dtype=np.float32)
+        out = W.watterson_with(torch.from_numpy(x).to(dev)[None], cfg,
+                               torch.from_numpy(fade).to(dev),
+                               torch.from_numpy(noise).to(dev))
+        return out[0].cpu().numpy()
+    return channel
+
+
+def clean_session(dev: torch.device, tmp: Path) -> tuple:
+    """Connect, SESSION_MESSAGES messages each way, a SESSION_FILE_BYTES
+    file of random bytes, a MODE_CHANGE and a message after it, then a
+    disconnect.  Returns (session, file bytes sent, file bytes received,
+    data modes (a, b) after the change)."""
+    s = Session(dev, clean_air, SESSION_SNR_DB)
+    (tmp / "rx").mkdir()
+    s.b.connection.file_transfer.receive_dir = str(tmp / "rx")
+    received = []
+    s.b.connection.file_transfer.on_received = \
+        lambda path, ok: received.append((path, ok))
+    require(s.a.connect("VE3ABC"), "session: connect refused")
+    s.pump()
+    require(s.a.connection.is_connected and s.b.connection.is_connected,
+            f"session: not connected ({s.a.connection.state}, "
+            f"{s.b.connection.state})")
+    for i in range(SESSION_MESSAGES):
+        require(s.a.send_message(f"clean-a-{i}"), "session: send refused")
+        require(s.b.send_message(f"clean-b-{i}"), "session: send refused")
+        s.pump()
+    content = np.random.default_rng(SESSION_SEED).integers(
+        0, 256, SESSION_FILE_BYTES, dtype=np.uint8).tobytes()
+    (tmp / "random.bin").write_bytes(content)
+    require(s.a.connection.send_file(str(tmp / "random.bin")),
+            "session: send_file refused")
+    s.pump()
+    for _ in range(60):
+        if received:
+            break
+        s.tick(1000)
+    got = Path(received[0][0]).read_bytes() if received and received[0][1] \
+        else b""
+    require(s.a.connection.request_mode_change(Modulation.DQPSK,
+                                               CodeRate.R1_2),
+            "session: mode change refused")
+    s.pump()
+    modes = tuple(f"{e.modem.data_modulation.name} "
+                  f"{e.modem.data_code_rate.name}" for e in (s.a, s.b))
+    require(s.a.send_message("after-mode-change"), "session: send refused")
+    s.pump()
+    s.a.disconnect()
+    s.pump()
+    for _ in range(40):
+        if not (s.a.connection.is_connected or s.b.connection.is_connected):
+            break
+        s.tick(500)
+    return s, content, got, modes
+
+
+def lossy_session(dev: torch.device) -> Session:
+    """LOSSY_MESSAGES messages each way over the Watterson channel, both
+    stations ticking LOSSY_TICK_MS at a time (the ARQ's 45 s timeouts
+    retransmit what the channel loses)."""
+    s = Session(dev, watterson_air(dev), LOSSY_SNR_DB)
+    require(s.a.connect("VE3ABC"), "lossy session: connect refused")
+    s.pump()
+    require(s.a.connection.is_connected and s.b.connection.is_connected,
+            "lossy session: not connected")
+    ia = ib = 0
+    for _ in range(400):
+        if ia < LOSSY_MESSAGES and s.a.send_message(f"lossy-a-{ia:02d}"):
+            ia += 1
+        if ib < LOSSY_MESSAGES and s.b.send_message(f"lossy-b-{ib:02d}"):
+            ib += 1
+        s.pump()
+        s.tick(LOSSY_TICK_MS)
+        if min(ia, ib, len(s.got["a"]), len(s.got["b"])) >= LOSSY_MESSAGES \
+                or not s.a.connection.is_connected:
+            break
+    return s
+
+
+def drive_session(label: str, run, card: str):
+    """Runs ``run()`` (a session; returns its Session first) with both
+    kernels' launch counters set to 0 just before it and read just after,
+    under ``torch.profiler``; prints its report and the device's idle
+    share.  Returns (run's result, launches)."""
+    torch.cuda.synchronize()
+    cuda_ldpc.launches = cuda_sc.launches = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {"sc_windows": cuda_sc.launches,
+                "ldpc_minsum": cuda_ldpc.launches}
+    out[0].report(label, wall, card)
+    busy = busy_ms(prof) / 1000.0
+    print(f"{label} on {card}: device busy {busy!r} s of {wall!r} s "
+          f"(profiled): idle share {1.0 - busy / wall!r}", flush=True)
+    return out, launches
+
+
+def phase_protocol(dev: torch.device, card: str) -> None:
+    """The CLI on the card, then two ProtocolEngine stations on the card:
+    a clean session and a lossy one (``drive_session``); then the LDPC
+    kernel at the sessions' largest decode."""
+    t0 = time.perf_counter()
+    phase_cli(dev, card)
+    print(f"phase_protocol, CLI: {time.perf_counter() - t0!r} s", flush=True)
+    decodes = []
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.object(F, "decode_codewords_with_ldpc",
+                              recorded_decodes(decodes)):
+        (s, content, got, modes), launches = drive_session(
+            "protocol clean session", lambda: clean_session(dev, Path(tmp)),
+            card)
+        want_a = [f"clean-b-{i}" for i in range(SESSION_MESSAGES)]
+        want_b = [f"clean-a-{i}" for i in range(SESSION_MESSAGES)] \
+            + ["after-mode-change"]
+        print(f"protocol clean session: file {len(content)} bytes sent, "
+              f"{len(got)} received, exact {got == content}; messages at a "
+              f"{s.got['a']}, at b {s.got['b']}; data modes after the change: "
+              f"a {modes[0]}, b {modes[1]}; connected at the end a "
+              f"{s.a.connection.is_connected} b {s.b.connection.is_connected}",
+              flush=True)
+        require(got == content, "protocol clean session: the file differs")
+        require(s.got["a"] == want_a and s.got["b"] == want_b,
+                "protocol clean session: messages lost, repeated or out of "
+                "order")
+        require(modes[0] == modes[1],
+                "protocol clean session: the stations' data modes differ")
+        require(not (s.a.connection.is_connected
+                     or s.b.connection.is_connected),
+                "protocol clean session: the disconnect did not complete")
+        require_launched("protocol clean session", launches,
+                         ("sc_windows", "ldpc_minsum"))
+
+        (s,), launches = drive_session(
+            "protocol lossy session", lambda: (lossy_session(dev),), card)
+        want = {k: [f"lossy-{o}-{i:02d}" for i in range(LOSSY_MESSAGES)]
+                for k, o in (("a", "b"), ("b", "a"))}
+        print(f"protocol lossy session: messages at a {s.got['a']}, at b "
+              f"{s.got['b']}; connected a {s.a.connection.is_connected} b "
+              f"{s.b.connection.is_connected}; waveform "
+              f"{F.WaveformMode(int(s.a.modem.waveform_mode)).name}",
+              flush=True)
+        require(s.got == want, "protocol lossy session: messages lost, "
+                "repeated or out of order")
+        require(s.a.connection.is_connected and s.b.connection.is_connected,
+                "protocol lossy session: the connection dropped")
+        require_launched("protocol lossy session", launches, ("ldpc_minsum",))
+    rate, blocks = max(decodes, key=lambda d: d[1].shape[0])
+    ldpc_at_new_shape(f"protocol session largest decode "
+                      f"{GOLDEN_NAMES[CodeRate(int(rate))]}",
+                      CodeRate(int(rate)), torch.from_numpy(blocks).to(dev),
+                      card, trap_escape=True)
+    print(f"phase_protocol: {time.perf_counter() - t0!r} s", flush=True)
+
 def main() -> None:
     t0 = time.perf_counter()
     card = card_line()
@@ -2104,6 +2475,7 @@ def main() -> None:
     phase_mfsk(dev, card)
     phase_otfs(dev, card)
     phase_engine(dev, card)
+    phase_protocol(dev, card)
 
     require(not any(m == "jax" or m.startswith("jax.")
                     or m == "projectultra_tpu"

@@ -6,8 +6,9 @@ default is already full float32, but cuDNN convolutions default to TF32,
 so both switches are set explicitly when the package is imported.
 
 Functions of the port run on the device of their input tensors.  Nothing
-here picks a device: a caller that needs the card calls ``require_cuda``,
-which raises instead of carrying on on the CPU.  ``host_table`` keeps one
+here picks a device: a caller that needs the card calls ``require_cuda``
+(or ``resolve``, for an entry point's ``device=None``), which raises
+instead of carrying on on the CPU.  ``host_table`` keeps one
 copy per device of a constant table built on the host.
 """
 
@@ -31,6 +32,12 @@ def require_cuda() -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: torch.cuda.is_available() is False")
     return torch.device("cuda", 0)
+
+
+def resolve(device) -> torch.device:
+    """The device an entry point runs on: ``device`` as given, or the
+    first CUDA device when it is None (``require_cuda``)."""
+    return require_cuda() if device is None else torch.device(device)
 
 
 @functools.lru_cache(maxsize=None)

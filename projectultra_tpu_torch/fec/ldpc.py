@@ -53,6 +53,7 @@ H_SEED_BASE = 0x12345678
 MIN_SUM_SCALE = 0.75
 V2C_CLAMP = 50.0
 DEFAULT_MAX_ITERS = 50
+HARD_LLR = 6.0  # LLR magnitude for hard-decision decode input
 
 
 def _params(rate: CodeRate) -> tuple[int, int]:

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from ..config import ModemConfig, Modulation, CodeRate
-from ..device import require_cuda
+from ..device import resolve
 from ..fec import ldpc
 from ..fec.interleave import channel_interleaver
 from ..ofdm import carriers as carriers_mod
@@ -59,8 +59,7 @@ class ModemEngine:
     def __init__(self, config: ModemConfig | None = None,
                  mc_config: MC.MCDPSKConfig | None = None,
                  device: torch.device | None = None):
-        self.device = require_cuda() if device is None else torch.device(
-            device)
+        self.device = resolve(device)
         self.config = config or ModemConfig()
         # ModemEngine uses the level-10 MC-DPSK preset: 13 carriers
         # (modem_engine.cpp:73).

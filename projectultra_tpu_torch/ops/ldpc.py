@@ -6,7 +6,8 @@ on the device by ``LDPCGraph`` as buffers.  ``decode`` runs the
 hand-written CUDA kernel (``ops/cuda_ldpc.py``) for CUDA tensors and the
 plain PyTorch version
 ``decode_plain`` for CPU tensors.  The plain version is also the oracle the
-kernel is tested against on the card.
+kernel is tested against on the card.  ``decode_hard`` and the stream
+helpers ``decode_soft_stream``/``decode_hard_stream`` wrap ``decode``.
 
 Arithmetic contract (identical to the JAX decoder in float32 messages, so
 bits, ok flags and iteration counts agree lane for lane):
@@ -29,8 +30,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..fec.ldpc import (DEFAULT_MAX_ITERS, LDPCCode, MIN_SUM_SCALE,
-                        V2C_CLAMP)
+from ..device import resolve
+from ..fec.ldpc import (DEFAULT_MAX_ITERS, HARD_LLR, LDPCCode,
+                        MIN_SUM_SCALE, V2C_CLAMP)
+from ..utils.bits import bits_to_bytes, bytes_to_bits
 
 
 @functools.lru_cache(maxsize=None)
@@ -265,3 +268,47 @@ def decode(code: LDPCCode, llrs: torch.Tensor,
     llr_total, ok, iters = decode_totals(graph, llrs, max_iters, trap_escape)
     return (llr_total[:, :code.k] < 0).to(torch.uint8), ok, iters
 
+
+def decode_hard(code: LDPCCode, bits: torch.Tensor,
+                max_iters: int = DEFAULT_MAX_ITERS):
+    """Hard-input decode: bit b -> LLR -6/+6 (ldpc_decoder.cpp:267-281),
+    on the device of ``bits``."""
+    llrs = torch.where(bits > 0, -HARD_LLR, HARD_LLR).to(torch.float32)
+    return decode(code, llrs, max_iters)
+
+
+def decode_soft_stream(code: LDPCCode, llrs: np.ndarray,
+                       max_iters: int = DEFAULT_MAX_ITERS,
+                       device: torch.device | None = None):
+    """Multi-block decode of a 1-D LLR stream (ldpc_decoder.cpp:283-428).
+
+    Chunks the stream into n-bit codewords (zero-padding a trailing partial
+    block), decodes them as one batch on ``device`` (the first CUDA device
+    when None), and returns the concatenated info BITS packed into bytes
+    only once at the very end — exactly the reference's bit-level
+    multi-block semantics.
+
+    Returns (decoded_bytes, success, per_block_iters).
+    """
+    device = resolve(device)
+    llrs = np.asarray(llrs, dtype=np.float32).reshape(-1)
+    if llrs.size == 0:
+        return b"", False, np.zeros(0, np.int32)
+    n = code.n
+    nb = (llrs.size + n - 1) // n
+    padded = np.zeros(nb * n, dtype=np.float32)
+    padded[:llrs.size] = llrs
+    blocks = torch.from_numpy(padded.reshape(nb, n)).to(device)
+    info, ok, iters = decode(code, blocks, max_iters)
+    info = info.cpu().numpy().reshape(-1)
+    return (bits_to_bytes(info), bool(ok.all().item()),
+            iters.cpu().numpy())
+
+
+def decode_hard_stream(code: LDPCCode, data: bytes,
+                       max_iters: int = DEFAULT_MAX_ITERS,
+                       device: torch.device | None = None):
+    """Byte-stream hard decode (LDPCDecoder::decode) on ``device``."""
+    bits = bytes_to_bits(data).astype(np.float32)
+    llrs = np.where(bits > 0, -HARD_LLR, HARD_LLR).astype(np.float32)
+    return decode_soft_stream(code, llrs, max_iters, device)

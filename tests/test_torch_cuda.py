@@ -35,6 +35,13 @@ within rtol 1e-3, atol 2e-3 of the CPU.
 The streaming engine: ``ModemEngine()`` takes the card; the reference
 CLI's five files streamed through it give the CPU engine's events and
 consumed positions, through both kernels.
+
+The protocol slice: ``ProtocolEngine``, ``RxPipeline`` and the waveform
+adapters take the card; ``decode_hard_stream`` goes through the LDPC
+kernel and gives the golden bytes; ``ops/dsp`` and the waterfall on the
+card within rtol 1e-4, atol 1e-5 (waterfall: rtol 1e-5 plus 1e-3 dB) of
+the CPU; two stations on the card connect and exchange a message each
+way through both kernels.
 """
 
 import os
@@ -736,3 +743,84 @@ def test_engine_on_the_card_equals_the_cpu(dev, golden_dir, name, mode):
 def test_engine_without_a_device_runs_on_the_card(dev):
     from projectultra_tpu_torch.modem.engine import ModemEngine
     assert ModemEngine().device == dev
+
+
+# ---------------------------------------------------------------------------
+# The protocol slice: entry points, the LDPC stream helpers, ops/dsp and a
+# two-station session on the card
+# ---------------------------------------------------------------------------
+
+def test_protocol_entry_points_take_the_card(dev):
+    from projectultra_tpu_torch.modem.rx_pipeline import RxPipeline
+    from projectultra_tpu_torch.protocol.engine import ProtocolEngine
+    from projectultra_tpu_torch.protocol.frame_v2 import WaveformMode
+    from projectultra_tpu_torch.waveform import factory
+    assert ProtocolEngine().modem.device == dev
+    assert RxPipeline()._engine.device == dev
+    for mode in (WaveformMode.MC_DPSK, WaveformMode.DPSK,
+                 WaveformMode.OFDM_CHIRP, WaveformMode.OFDM_COX,
+                 WaveformMode.OTFS_EQ):
+        assert factory.create(mode).device == dev
+
+
+@pytest.mark.parametrize("rate", list(NAMES), ids=list(NAMES.values()))
+def test_hard_stream_decode_on_the_card(dev, golden_dir, rate):
+    """decode_hard_stream of the reference's golden coded bytes goes
+    through the LDPC kernel and gives the golden decoded bytes and
+    iteration count, as on the CPU."""
+    fields = {}
+    with open(os.path.join(golden_dir, f"golden_ldpc_{NAMES[rate]}.txt")) as f:
+        for line in f:
+            toks = line.split()
+            fields.update(zip(toks[::2], toks[1::2]))
+    code = ldpc.get_code(rate)
+    before = cuda_ldpc.launches
+    dec, ok, iters = T.decode_hard_stream(code, bytes.fromhex(fields["coded"]))
+    assert cuda_ldpc.launches > before
+    assert ok and dec.hex() == fields["decoded"]
+    assert int(iters[-1]) == int(fields["iters"])
+    cpu = T.decode_hard_stream(code, bytes.fromhex(fields["coded2"]),
+                               device=torch.device("cpu"))
+    card = T.decode_hard_stream(code, bytes.fromhex(fields["coded2"]))
+    assert card[:2] == cpu[:2]
+    np.testing.assert_array_equal(card[2], cpu[2])
+
+
+def test_dsp_on_the_card_equals_the_cpu(dev):
+    from projectultra_tpu_torch.ops import dsp as D
+    from projectultra_tpu_torch.utils import observability as O
+    x = np.random.default_rng(11).standard_normal((4, 4096)) \
+        .astype(np.float32) * np.float32(0.3)
+    xc, xg = torch.from_numpy(x), torch.from_numpy(x).to(dev)
+    bq = D.biquad_highpass(300.0, 0.707, 48000.0)
+    h = D.fir_lowpass(101, 2000.0, 48000.0)
+    for name, fn in (("biquad", lambda s: D.biquad_apply(s, bq)),
+                     ("agc", D.agc), ("fir", lambda s: D.fir_apply(s, h)),
+                     ("resample", lambda s: D.resample(s, 48000, 8000))):
+        got = fn(xg)
+        assert got.device == dev, name
+        np.testing.assert_allclose(got.cpu().numpy(), fn(xc).numpy(),
+                                   rtol=1e-4, atol=1e-5, err_msg=name)
+    np.testing.assert_allclose(O.waterfall(xg)[0], O.waterfall(xc)[0],
+                               rtol=1e-5, atol=1e-3)
+
+
+def test_two_station_session_on_the_card(dev):
+    """Two ProtocolEngine stations on the card: connect and one message
+    each way, through both kernels."""
+    from projectultra_tpu_torch.protocol.engine import ProtocolEngine
+    a, b = ProtocolEngine(device=dev), ProtocolEngine(device=dev)
+    a.connection.set_local_callsign("W1AW")
+    b.connection.set_local_callsign("VE3ABC")
+    b.connection.set_measured_snr(15.0)
+    a.on_tx_audio = lambda x: b.feed_audio(np.pad(x, (0, 4000)))
+    b.on_tx_audio = lambda x: a.feed_audio(np.pad(x, (0, 4000)))
+    got_a, got_b = [], []
+    a.connection.on_message_received = got_a.append
+    b.connection.on_message_received = got_b.append
+    before = (cuda_ldpc.launches, cuda_sc.launches)
+    assert a.connect("VE3ABC")
+    assert a.connection.is_connected and b.connection.is_connected
+    assert a.send_message("to b") and b.send_message("to a")
+    assert got_b == ["to b"] and got_a == ["to a"]
+    assert cuda_ldpc.launches > before[0] and cuda_sc.launches > before[1]

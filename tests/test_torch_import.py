@@ -74,7 +74,22 @@ def test_port_modules_found():
                  "projectultra_tpu_torch.modem.acquisition.chirp",
                  "projectultra_tpu_torch.modem.acquisition.cox",
                  "projectultra_tpu_torch.modem.acquisition.dpsk",
-                 "projectultra_tpu_torch.modem.acquisition.otfs"):
+                 "projectultra_tpu_torch.modem.acquisition.otfs",
+                 "projectultra_tpu_torch.utils.logging",
+                 "projectultra_tpu_torch.utils.settings",
+                 "projectultra_tpu_torch.utils.observability",
+                 "projectultra_tpu_torch.protocol.compression",
+                 "projectultra_tpu_torch.protocol.arq",
+                 "projectultra_tpu_torch.protocol.file_transfer",
+                 "projectultra_tpu_torch.protocol.connection",
+                 "projectultra_tpu_torch.protocol.engine",
+                 "projectultra_tpu_torch.modem.adaptive",
+                 "projectultra_tpu_torch.modem.rx_pipeline",
+                 "projectultra_tpu_torch.waveform",
+                 "projectultra_tpu_torch.waveform.factory",
+                 "projectultra_tpu_torch.waveform.otfs_adapter",
+                 "projectultra_tpu_torch.ops.dsp",
+                 "projectultra_tpu_torch.cli"):
         assert name in mods
 
 
@@ -147,3 +162,22 @@ def test_require_cuda_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         require_cuda()
+
+
+@pytest.mark.parametrize("entry", ["ProtocolEngine", "RxPipeline",
+                                   "waveform.create", "cli.main"])
+def test_entry_points_take_the_card(entry, monkeypatch, tmp_path):
+    """Without a device each entry point of the protocol slice asks for
+    the first CUDA device, so it raises where there is none."""
+    from projectultra_tpu_torch import cli
+    from projectultra_tpu_torch.modem.rx_pipeline import RxPipeline
+    from projectultra_tpu_torch.protocol.engine import ProtocolEngine
+    from projectultra_tpu_torch.protocol.frame_v2 import WaveformMode
+    from projectultra_tpu_torch.waveform import factory
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call = {"ProtocolEngine": ProtocolEngine, "RxPipeline": RxPipeline,
+            "waveform.create": lambda: factory.create(WaveformMode.OFDM_COX),
+            "cli.main": lambda: cli.main(["ptx", "hello", "-o",
+                                          str(tmp_path / "tx.f32")])}[entry]
+    with pytest.raises(RuntimeError):
+        call()
