@@ -45,7 +45,13 @@ checks them:
   device=cuda)``'s ``ptx`` and ``prx``, and two
   ``ProtocolEngine(device=cuda)`` stations holding a session over the
   air (connect, messages, a file, a mode change, disconnect) and a
-  second one over the Watterson channel.
+  second one over the Watterson channel;
+* slice 8, the sweep harness and frame-axis data parallelism --
+  ``parallel.sweep.run_point(point, device=cuda)`` over the 13 rows of the
+  regression matrix and ``run_point_stream`` over two single-stream
+  rows; ``parallel.dcn.acq_sweep_counts`` (MC-DPSK level10 acquisition,
+  256 frames at 5 dB) at world 1 over NCCL and at world 2 in two
+  processes over gloo; ``parallel.dryrun.dryrun_multichip(2)``.
 
 Phases:
 
@@ -138,7 +144,26 @@ Phases:
     after).  Printed per session: wall seconds, seconds of audio
     exchanged, transmissions each way, frames decoded, retransmissions,
     transmit and receiving-poll ms; then the LDPC kernel at the sessions'
-    largest decode against the plain decoder and its bound.
+    largest decode against the plain decoder and its bound;
+16. ``phase_sweep``: every REGRESSION_MATRIX row through ``run_point`` on
+    the card with its own generator, at the batch the earlier phases run
+    its waveform at (MC-DPSK and OFDM_CHIRP 256, DPSK ``medium`` 256 and
+    ``robust`` 64): decode rate >= the row's minimum and the LDPC kernel
+    launched; a row that misses is rebuilt from numpy-seeded noise and,
+    if it misses again, gated on the CPU port missing the same lanes
+    (a CPU test can hand the same numpy noise to JAX).  Printed per row:
+    decode, detected, BER, CFO error, ms a point and frames/s (best of
+    2), the idle share and the LDPC launches.  Then ``run_point_stream``
+    at 3 frames for MC-DPSK 5 dB and OFDM_COX 17 dB R1/2 (every frame
+    delivered, else the CPU engine delivers the same ones from the same
+    noisy stream), wall time and launches; the Cox row must launch the
+    window kernel;
+17. ``phase_parallel``: ``acq_sweep_counts`` at world 1 over NCCL (all 256
+    frames decoded exactly, the LDPC kernel launched) and at world 2 in
+    two spawned processes over gloo sharing the card (counts identical,
+    each rank launching the LDPC kernel), the all-reduce's ms; then
+    ``dryrun_multichip(2)`` on the card (every step of both ranks
+    decodes every frame, each rank launches both kernels).
 
 Beside the timings, every kernel is timed at each shape its paths give it
 (LDPC: R1/2 17 dB B = 16,384, the R1/2 sigma 0.62 waterfall batch of
@@ -162,6 +187,7 @@ output is one JSON object naming the device.  It imports nothing of jax.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import subprocess
@@ -192,6 +218,9 @@ from projectultra_tpu_torch.ops import cuda_build, cuda_ldpc, cuda_sc
 from projectultra_tpu_torch.ops import ldpc as ldpc_ops
 from projectultra_tpu_torch.ops.sc_windows import sc_windows_plain
 from projectultra_tpu_torch.otfs import otfs as OT
+from projectultra_tpu_torch.parallel import dcn, dryrun
+from projectultra_tpu_torch.parallel import mesh as PM
+from projectultra_tpu_torch.parallel import sweep as SW
 from projectultra_tpu_torch.protocol import frame_v2 as F
 from projectultra_tpu_torch.protocol.engine import ProtocolEngine as PE
 from projectultra_tpu_torch.psk import dpsk as DP
@@ -476,14 +505,16 @@ def time_decoders(graph, llrs: torch.Tensor, kernel_reps: int,
 def profile_busy_ms(fn, reps: int, rows: int = 15) -> float:
     """Device busy milliseconds per call of fn over reps calls under
     ``torch.profiler``: the length of the union of the device kernels'
-    time intervals.  Prints the device time by operator (``rows`` rows)."""
+    time intervals.  Prints the device time by operator (``rows`` rows;
+    none when 0)."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    print(prof.key_averages().table(sort_by="self_device_time_total",
-                                    row_limit=rows), flush=True)
+    if rows:
+        print(prof.key_averages().table(sort_by="self_device_time_total",
+                                        row_limit=rows), flush=True)
     return busy_ms(prof) / reps
 
 
@@ -2437,6 +2468,192 @@ def phase_protocol(dev: torch.device, card: str) -> None:
                       card, trap_escape=True)
     print(f"phase_protocol: {time.perf_counter() - t0!r} s", flush=True)
 
+# ---------------------------------------------------------------------------
+# Slice 8: the sweep harness and frame-axis data parallelism
+# ---------------------------------------------------------------------------
+
+SWEEP_SEED = 42             # the harness's seed (parallel/sweep.py)
+SWEEP_NP_SEED = 160         # numpy noise of a row rebuilt after a miss
+STREAM_ROWS = [             # 3 frames each: the engine's polls are host-bound
+    (SW.SweepPoint("MC_DPSK", 5.0, 0.0, "awgn", frames=3), 1.0),
+    # tools/parity_curves.py:77 (the JAX engine decodes 15 of 15 there).
+    (SW.SweepPoint("OFDM_COX", 17.0, 0.0, "awgn", rate=CodeRate.R1_2,
+                   frames=3), 1.0),
+]
+PARALLEL_FRAMES = CHIRP_BATCH
+
+
+def sweep_batch(point) -> int:
+    """The batch the earlier phases run the row's waveform at: the chirp
+    cell's for MC-DPSK and OFDM_CHIRP, phase_dpsk's per DPSK preset."""
+    if point.waveform == "DPSK":
+        return {p: B for p, _, B in DPSK_CASES}[point.preset]
+    return CHIRP_BATCH
+
+
+def sweep_label(point) -> str:
+    preset = f" {point.preset}" if point.preset else ""
+    return (f"sweep {point.waveform}{preset} {point.snr_db} dB "
+            f"{point.cfo_hz} Hz {point.channel} B={point.frames}")
+
+
+def sweep_missed_row(point, min_rate: float, dev: torch.device) -> None:
+    """A row under its minimum rate, rebuilt with numpy-seeded noise (the
+    same normals on every device, so a CPU test can hand them to JAX):
+    gated on its rate, or else on the CPU port missing the same lanes."""
+    label = sweep_label(point) + " (numpy noise)"
+    build, lanes_of = SW.BUILD[point.waveform], SW.LANES[point.waveform]
+    batch = build(point, seed=SWEEP_SEED, device=dev)
+    card = lanes_of(point, SW._apply_channel(
+        point, batch.tx, np.random.default_rng(SWEEP_NP_SEED)), batch)
+    res = SW.score(point, card)
+    missed = torch.nonzero(~card.decoded).flatten().cpu()
+    print(f"{label}: decode {res.decode_rate!r} (min {min_rate}), "
+          f"detected {res.detected_rate!r}; missed lanes {missed.tolist()}",
+          flush=True)
+    if res.decode_rate >= min_rate:
+        return
+    cpu_batch = build(point, seed=SWEEP_SEED, device=torch.device("cpu"))
+    rx = SW._apply_channel(point, cpu_batch.tx,
+                           np.random.default_rng(SWEEP_NP_SEED))[missed]
+    cpu = lanes_of(point, rx, SW.Batch(*(t[missed] for t in cpu_batch)))
+    same = bool(torch.equal(cpu.decoded, card.decoded[missed].cpu())
+                and torch.equal(cpu.found, card.found[missed].cpu()))
+    print(f"{label}: the missed lanes on the CPU port: identical={same}",
+          flush=True)
+    require(same, f"{label}: the card's missed lanes differ from the CPU")
+
+
+def sweep_row(point, min_rate: float, dev: torch.device, card: str) -> None:
+    """One regression row at its batch: gate, time (host clock, best of 2
+    after the gated run), idle share (profiled) and LDPC launches."""
+    label = sweep_label(point)
+
+    def run():
+        return SW.run_point(point, SWEEP_SEED, device=dev)
+
+    res, launches = launches_of(run)
+    ms = float("inf")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        ms = min(ms, (time.perf_counter() - t0) * 1e3)
+    busy = profile_busy_ms(run, 1, rows=0)
+    ok = res.decode_rate >= min_rate
+    print(f"{label}: decode {res.decode_rate!r} (min {min_rate}) "
+          f"{'PASS' if ok else 'MISS'}, detected {res.detected_rate!r}, "
+          f"BER {res.ber!r}, CFO error {res.cfo_err_hz!r} Hz; {ms!r} ms a "
+          f"point ({point.frames / ms * 1e3!r} frames/s: TX, channel, "
+          f"receive and the host read), device busy {busy!r} ms: idle share "
+          f"{1.0 - busy / ms!r}; LDPC launches {launches['ldpc_minsum']} on "
+          f"{card}", flush=True)
+    require_launched(label, launches, ("ldpc_minsum",))
+    if not ok:
+        sweep_missed_row(point, min_rate, dev)
+
+
+def sweep_stream_row(point, min_rate: float, dev: torch.device,
+                     card: str) -> None:
+    """One single-stream row through the card's ModemEngine; a miss is
+    gated on the CPU engine delivering the same payloads from the same
+    noisy stream."""
+    label = f"sweep stream {point.waveform} {point.snr_db} dB {point.channel}"
+    t0 = time.perf_counter()
+    res, launches = launches_of(
+        lambda: SW.run_point_stream(point, SWEEP_SEED, device=dev))
+    wall = time.perf_counter() - t0
+    stream = SW.stream_tx(point, dev)
+    audio_s = len(stream) / 48000.0
+    print(f"{label}: {point.frames} frames, decode {res.decode_rate!r} (min "
+          f"{min_rate}), detected {res.detected_rate!r}, CFO error "
+          f"{res.cfo_err_hz!r} Hz; {wall!r} s wall for {audio_s!r} s of audio "
+          f"(real-time factor {audio_s / wall!r}) on {card}", flush=True)
+    require_launched(label, launches, ("ldpc_minsum",)
+                     + (("sc_windows",) if point.waveform == "OFDM_COX"
+                        else ()))
+    if res.decode_rate >= min_rate:
+        return
+    g = torch.Generator(device=dev).manual_seed(SWEEP_SEED)
+    noisy = SW._apply_channel(point, torch.from_numpy(stream).to(dev)[None],
+                              g)[0].cpu().numpy()
+    _, on_card = SW.receive_stream(point, noisy, dev)
+    _, on_cpu = SW.receive_stream(point, noisy, torch.device("cpu"))
+    print(f"{label}: delivered on the card {sorted(on_card)}, on the CPU "
+          f"{sorted(on_cpu)}", flush=True)
+    require(on_card == on_cpu, f"{label}: the card's frames differ from "
+            "the CPU engine's")
+
+
+def phase_sweep(dev: torch.device, card: str) -> None:
+    """Every REGRESSION_MATRIX row through run_point on the card at the
+    earlier phases' batches, then the two stream rows."""
+    t0 = time.perf_counter()
+    for point, min_rate in SW.REGRESSION_MATRIX:
+        point = dataclasses.replace(point, frames=sweep_batch(point))
+        sweep_row(point, min_rate, dev, card)
+    print(f"phase_sweep, matrix: {time.perf_counter() - t0!r} s", flush=True)
+    for point, min_rate in STREAM_ROWS:
+        sweep_stream_row(point, min_rate, dev, card)
+    print(f"phase_sweep: {time.perf_counter() - t0!r} s", flush=True)
+
+
+def parallel_rank(mesh, B: int):
+    """One rank of the acquisition sweep (spawned by PM.run_ranks):
+    (counts, backend, this rank's LDPC launches)."""
+    counts = dcn.acq_sweep_counts(B, CHIRP_SNR_DB, mesh=mesh)
+    return counts, mesh.backend, cuda_ldpc.launches
+
+
+def phase_parallel(dev: torch.device, card: str) -> None:
+    """The acquisition sweep at world 1 over NCCL in this process, then at
+    world 2 over gloo in two processes sharing the card (NCCL refuses two
+    ranks on one GPU): identical counts, every frame decoded; then the
+    two-rank dry run on the card."""
+    t0 = time.perf_counter()
+    B = PARALLEL_FRAMES
+    with PM.frame_mesh(device=dev) as mesh:
+        require(mesh.backend == "nccl", f"world 1 on the card runs "
+                f"{mesh.backend}, not nccl")
+        t1 = time.perf_counter()
+        ref, launches = launches_of(
+            lambda: dcn.acq_sweep_counts(B, CHIRP_SNR_DB, mesh=mesh))
+        sweep_s = time.perf_counter() - t1
+        ar_ms = PM.all_sum_ms(mesh)
+    print(f"parallel world 1 (nccl): {ref} in {sweep_s!r} s (inputs built on "
+          f"the host included); all-reduce of the counts {ar_ms!r} ms "
+          f"(median of 20, host read included) on {card}", flush=True)
+    require(ref == {"decoded": B, "found": B, "bit_errors": 0},
+            f"parallel world 1: {ref}, not {B} frames decoded exactly")
+    require_launched("parallel world 1", launches, ("ldpc_minsum",))
+
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ranks = PM.run_ranks(parallel_rank, 2, dev, B)
+    print(f"parallel world 2: {ranks} in {time.perf_counter() - t1!r} s "
+          f"(two spawned processes, start-up included)", flush=True)
+    for counts, backend, ldpc_launches in ranks:
+        require(backend == "gloo", f"world 2 on one card runs {backend}")
+        require(counts == ref, f"parallel world 2: {counts} != world 1 {ref}")
+        require(ldpc_launches > 0, "a world-2 rank launched no LDPC kernel")
+
+    t1 = time.perf_counter()
+    reports = dryrun.dryrun_multichip(2, dev)
+    for r in reports:
+        print(f"dryrun_multichip rank {r['rank']} of {r['world']} "
+              f"({r['backend']}, {r['device']}): failures {r['failures']}, "
+              f"all-reduce {r['allreduce_ms']!r} ms (median of 20, host read "
+              f"included), kernel launches {r['launches']} on {card}",
+              flush=True)
+        require(r["backend"] == "gloo" and not any(r["failures"].values()),
+                f"dryrun_multichip rank {r['rank']}: {r}")
+        require(r["launches"]["ldpc_minsum"] > 0
+                and r["launches"]["sc_windows"] > 0,
+                f"dryrun_multichip rank {r['rank']} skipped a kernel")
+    print(f"dryrun_multichip(2): {time.perf_counter() - t1!r} s; "
+          f"phase_parallel: {time.perf_counter() - t0!r} s", flush=True)
+
+
 def main() -> None:
     t0 = time.perf_counter()
     card = card_line()
@@ -2476,6 +2693,8 @@ def main() -> None:
     phase_otfs(dev, card)
     phase_engine(dev, card)
     phase_protocol(dev, card)
+    phase_sweep(dev, card)
+    phase_parallel(dev, card)
 
     require(not any(m == "jax" or m.startswith("jax.")
                     or m == "projectultra_tpu"

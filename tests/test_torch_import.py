@@ -89,7 +89,12 @@ def test_port_modules_found():
                  "projectultra_tpu_torch.waveform.factory",
                  "projectultra_tpu_torch.waveform.otfs_adapter",
                  "projectultra_tpu_torch.ops.dsp",
-                 "projectultra_tpu_torch.cli"):
+                 "projectultra_tpu_torch.cli",
+                 "projectultra_tpu_torch.parallel",
+                 "projectultra_tpu_torch.parallel.sweep",
+                 "projectultra_tpu_torch.parallel.mesh",
+                 "projectultra_tpu_torch.parallel.dcn",
+                 "projectultra_tpu_torch.parallel.dryrun"):
         assert name in mods
 
 
@@ -141,6 +146,35 @@ def test_no_jax_import_in_port_sources():
             assert not _forbidden(name), (path, name)
 
 
+TOOLS = [ROOT / "tools" / "torch_dcn_sweep.py",
+         ROOT / "tools" / "torch_regression_matrix.py"]
+
+
+def test_port_tools_import_only_the_port():
+    """The port's tools name no jax and nothing of the JAX package, and
+    loading them with the port modules they import leaves both out of
+    ``sys.modules``."""
+    for path in TOOLS:
+        names = set(_imported_modules(path))
+        assert "projectultra_tpu_torch.parallel" in names \
+            or "projectultra_tpu_torch.parallel.sweep" in names, path
+        for name in names:
+            assert not _forbidden(name), (path, name)
+    code = ("import runpy, sys\n"
+            f"for path in {[str(p) for p in TOOLS]!r}:\n"
+            "    runpy.run_path(path, run_name='tool')\n"
+            "import projectultra_tpu_torch.parallel.sweep\n"
+            "import projectultra_tpu_torch.parallel.dcn\n"
+            "import projectultra_tpu_torch.parallel.mesh\n"
+            f"bad = sorted(k for k in sys.modules if any(k == t or "
+            f"k.startswith(t + '.') for t in {FORBIDDEN!r}))\n"
+            "print('FORBIDDEN_MODULES', bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_chip_smoke_imports_only_the_port():
     """chip_smoke.py reaches everything through the port and imports
     nothing of jax or of the JAX package."""
@@ -165,19 +199,31 @@ def test_require_cuda_raises_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["ProtocolEngine", "RxPipeline",
-                                   "waveform.create", "cli.main"])
+                                   "waveform.create", "cli.main",
+                                   "sweep.run_point", "sweep.run_point_stream",
+                                   "dcn.acq_sweep_counts", "dryrun.entry",
+                                   "dryrun.dryrun_multichip"])
 def test_entry_points_take_the_card(entry, monkeypatch, tmp_path):
-    """Without a device each entry point of the protocol slice asks for
-    the first CUDA device, so it raises where there is none."""
+    """Without a device each entry point of the protocol and parallel
+    slices asks for the first CUDA device, so it raises where there is
+    none."""
     from projectultra_tpu_torch import cli
     from projectultra_tpu_torch.modem.rx_pipeline import RxPipeline
+    from projectultra_tpu_torch.parallel import dcn, dryrun, sweep
     from projectultra_tpu_torch.protocol.engine import ProtocolEngine
     from projectultra_tpu_torch.protocol.frame_v2 import WaveformMode
     from projectultra_tpu_torch.waveform import factory
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    point = sweep.SweepPoint("MC_DPSK", 5.0, frames=2)
     call = {"ProtocolEngine": ProtocolEngine, "RxPipeline": RxPipeline,
             "waveform.create": lambda: factory.create(WaveformMode.OFDM_COX),
             "cli.main": lambda: cli.main(["ptx", "hello", "-o",
-                                          str(tmp_path / "tx.f32")])}[entry]
+                                          str(tmp_path / "tx.f32")]),
+            "sweep.run_point": lambda: sweep.run_point(point),
+            "sweep.run_point_stream": lambda: sweep.run_point_stream(point),
+            "dcn.acq_sweep_counts": lambda: dcn.acq_sweep_counts(2),
+            "dryrun.entry": dryrun.entry,
+            "dryrun.dryrun_multichip":
+                lambda: dryrun.dryrun_multichip(2)}[entry]
     with pytest.raises(RuntimeError):
         call()
