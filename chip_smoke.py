@@ -51,7 +51,13 @@ checks them:
   regression matrix and ``run_point_stream`` over two single-stream
   rows; ``parallel.dcn.acq_sweep_counts`` (MC-DPSK level10 acquisition,
   256 frames at 5 dB) at world 1 over NCCL and at world 2 in two
-  processes over gloo; ``parallel.dryrun.dryrun_multichip(2)``.
+  processes over gloo; ``parallel.dryrun.dryrun_multichip(2)``;
+* slice 9, the bf16 fast modes and the tool twins -- the LDPC kernel's
+  bf16-message instantiation, the main path and the chirp cell with
+  ``ops.ldpc.default_msg_dtype(torch.bfloat16)`` and
+  ``sync.chirp.bf16_mode()`` on, and the ``main`` of
+  ``tools/torch_{ber_curves,test_hf_reality,cli_simulator,
+  threaded_simulator,test_iwaveform,profile_acquisition}.py``.
 
 Phases:
 
@@ -163,7 +169,30 @@ Phases:
     two spawned processes over gloo sharing the card (counts identical,
     each rank launching the LDPC kernel), the all-reduce's ms; then
     ``dryrun_multichip(2)`` on the card (every step of both ranks
-    decodes every frame, each rank launches both kernels).
+    decodes every frame, each rank launches both kernels);
+18. ``phase_bf16`` (run right after phase 5, on its LLRs): the LDPC
+    kernel's bf16 instantiation against the plain
+    decoder with bf16 messages, lane-exact (bits, ok, iterations) on the
+    main path's 17 dB LLRs (B = 16,384), the sigma 0.62 waterfall batch of
+    16,384 and an R1/4 sigma 1.1 batch with trap_escape; its call ms
+    beside the float32 kernel's at the first two (CUDA events, turns f32,
+    bf16, bf16, f32) and its device ms against its bound at all three
+    (the same LLR bytes); tests/test_ldpc.py's two bf16-vs-f32 rate
+    gates on the card; the main path with bf16
+    messages as the default (the bench's gate; only the bf16 kernel
+    launched: its count is the ``kernels`` line's) and the chirp cell
+    (32 buffers of 256, 5 dB) with both bf16 modes on (the bench's gate,
+    detection equal to the CPU's bf16 mode on 64 lanes, frames/s and
+    device busy beside the float32 path's on the same buffers); both
+    switches restored;
+19. ``phase_tools``: each tool twin's ``main`` on the card, exit 0 and its
+    JSON result printed with its kernel launches: ``ber_curves --frames
+    256`` with float32 and with bf16 messages (every point's FER within
+    0.04 of the other; each run through its own kernel only),
+    ``test_hf_reality --quick`` (all five gates), ``cli_simulator``,
+    ``threaded_simulator``, ``test_iwaveform --frames 5`` batched and
+    ``--stream`` (every frame decoded), ``profile_acquisition --seconds
+    2`` (the 1.2 s dual chirp needs more than 1 s) in float32 and bf16.
 
 Beside the timings, every kernel is timed at each shape its paths give it
 (LDPC: R1/2 17 dB B = 16,384, the R1/2 sigma 0.62 waterfall batch of
@@ -188,6 +217,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib.util
 import io
 import json
 import subprocess
@@ -207,6 +237,7 @@ from torch.profiler import ProfilerActivity, profile
 from projectultra_tpu_torch import (CodeRate, ModemConfig, Modulation,
                                     get_code, require_cuda)
 from projectultra_tpu_torch.config import high_throughput, nvis_mode
+from projectultra_tpu_torch.device import card_line as device_card_line
 from projectultra_tpu_torch import cli, native
 from projectultra_tpu_torch.fec.ldpc import DEFAULT_MAX_ITERS
 from projectultra_tpu_torch.modem.engine import ModemEngine
@@ -261,7 +292,13 @@ SC_OPS_PER_SAMPLE = 12
 KERNELS = {  # name -> (wrapper module, TPU kernel it replaces)
     "ldpc_minsum": (cuda_ldpc, "projectultra_tpu/ops/pallas_ldpc.py:102"),
     "sc_windows": (cuda_sc, "projectultra_tpu/ops/pallas_sync.py:44"),
+    # The bf16-message instantiation of ldpc_minsum.cu: the card's form of
+    # the JAX decoder's msg_dtype=bfloat16 fast mode (an XLA decode there).
+    "ldpc_minsum_bf16": (cuda_ldpc,
+                         "projectultra_tpu/ops/ldpc.py::decode "
+                         "(msg_dtype=bfloat16)"),
 }
+BF16 = torch.bfloat16
 
 COX_CFG = ModemConfig()  # the default 512-FFT pilot plan (OFDM_COX)
 COX_BATCH = 512          # frames per buffer, as the JAX bench runs Cox
@@ -299,10 +336,8 @@ def require(cond: bool, what: str) -> None:
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60).stdout
-    return out.strip().splitlines()[0].strip()
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return device_card_line(torch.device("cuda", 0))
 
 
 # ---------------------------------------------------------------------------
@@ -336,14 +371,19 @@ def waterfall_llrs(rate: CodeRate, sigma: float, B: int,
 
 
 def compare_decoders(rate: CodeRate, llrs: torch.Tensor, label: str,
-                     trap_escape: bool = False) -> float:
-    """Kernel vs plain decoder on the same LLRs; returns the max abs
-    difference of the total LLRs (bits, ok and iters must be equal)."""
+                     trap_escape: bool = False,
+                     msg_dtype: torch.dtype = torch.float32) -> float:
+    """Kernel vs plain decoder on the same LLRs, both with ``msg_dtype``
+    edge messages; returns the max abs difference of the total LLRs (bits,
+    ok and iters must be equal)."""
     graph = ldpc_ops.graph_for(get_code(rate), llrs.device)
     kw = {"trap_escape": True} if trap_escape else {}
+    kw["msg_dtype"] = msg_dtype
     llr_k, ok_k, it_k = cuda_ldpc.decode_cuda(graph, llrs, **kw)
     llr_p, ok_p, it_p = ldpc_ops.decode_plain(graph, llrs, **kw)
     torch.cuda.synchronize()
+    if msg_dtype == BF16:
+        label = "bf16 messages, " + label
     k = graph.k
     bits_eq = bool(((llr_k[:, :k] < 0) == (llr_p[:, :k] < 0)).all())
     ok_eq = bool((ok_k == ok_p).all())
@@ -371,14 +411,16 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def ldpc_passes(graph, llrs: torch.Tensor, trap_escape: bool = False):
+def ldpc_passes(graph, llrs: torch.Tensor, trap_escape: bool = False,
+                msg_dtype: torch.dtype = torch.float32):
     """Iterations each lane of this run's data needs: iters + 1 for a lane
     that converges, max_iters for one that does not; with ``trap_escape``
     a lane that fails the first pass adds the retry's."""
-    _, ok1, it1 = cuda_ldpc.decode_cuda(graph, llrs)
+    _, ok1, it1 = cuda_ldpc.decode_cuda(graph, llrs, msg_dtype=msg_dtype)
     passes = torch.where(ok1, it1 + 1, it1).double()
     if trap_escape and not bool(ok1.all()):
-        _, ok, it = cuda_ldpc.decode_cuda(graph, llrs, trap_escape=True)
+        _, ok, it = cuda_ldpc.decode_cuda(graph, llrs, trap_escape=True,
+                                          msg_dtype=msg_dtype)
         retry = torch.where(ok, it + 1, it).double()
         passes = passes + torch.where(ok1, 0.0, retry)
     return passes
@@ -387,8 +429,9 @@ def ldpc_passes(graph, llrs: torch.Tensor, trap_escape: bool = False):
 def ldpc_bound(graph, passes: torch.Tensor):
     """The decoder's bound on this run's data: LLRs read once, totals, ok
     and iters written once; LDPC_OPS_PER_EDGE per edge for every iteration
-    each lane ran (``ldpc_passes``).  Returns (ms, basis, mean iterations
-    run)."""
+    each lane ran (``ldpc_passes``).  The same for bf16 messages: the
+    messages live in shared memory, so the bytes are the LLRs' either way.
+    Returns (ms, basis, mean iterations run)."""
     B = passes.shape[0]
     edges = int(graph.row_mask.sum())
     n_bytes = B * graph.n * 4 * 2 + B * (1 + 4)
@@ -410,11 +453,18 @@ def sc_bound(B: int, half: int, stride: int, G: int):
 SHAPES: list = []
 
 
+#: The name a kernel's device events carry (both LDPC instantiations are
+#: ldpc_minsum_kernel<threads, bf16>).
+KERNEL_EVENT = {"ldpc_minsum": "ldpc_minsum_kernel",
+                "ldpc_minsum_bf16": "ldpc_minsum_kernel",
+                "sc_windows": "sc_windows_kernel"}
+
+
 def report_shape(name: str, shape: str, fn, reps: int, bound_ms: float,
                  by: str, card: str) -> float:
     """Times fn's kernel on the device (profiler) and its whole call
     (CUDA events), prints both beside the bound; returns the kernel ms."""
-    ms = device_ms(fn, reps, f"{name}_kernel")
+    ms = device_ms(fn, reps, KERNEL_EVENT[name])
     call_ms = time_ms(fn, reps)
     SHAPES.append((name, shape, ms, bound_ms, by))
     print(f"kernel {name} [{shape}]: {ms!r} ms on the device ({call_ms!r} ms "
@@ -424,21 +474,23 @@ def report_shape(name: str, shape: str, fn, reps: int, bound_ms: float,
 
 
 def time_ldpc_shape(label: str, rate: CodeRate, llrs: torch.Tensor,
-                    card: str, reps: int = 20,
-                    trap_escape: bool = False) -> tuple[float, float, str]:
-    """Times the kernel on llrs and reports it against its bound; returns
-    (kernel ms, bound ms, basis)."""
+                    card: str, reps: int = 20, trap_escape: bool = False,
+                    msg_dtype: torch.dtype = torch.float32
+                    ) -> tuple[float, float, str]:
+    """Times the kernel (the instantiation of ``msg_dtype``) on llrs and
+    reports it against its bound; returns (kernel ms, bound ms, basis)."""
     graph = ldpc_ops.graph_for(get_code(rate), llrs.device)
-    _, ok, _ = cuda_ldpc.decode_cuda(graph, llrs, trap_escape=trap_escape)
+    kw = {"trap_escape": trap_escape, "msg_dtype": msg_dtype}
+    _, ok, _ = cuda_ldpc.decode_cuda(graph, llrs, **kw)
     bound_ms, by, passes = ldpc_bound(graph, ldpc_passes(graph, llrs,
-                                                         trap_escape))
+                                                         **kw))
     trap = ", trap_escape" if trap_escape else ""
-    ms = report_shape("ldpc_minsum", f"{label}{trap}, B={llrs.shape[0]}, "
+    name = "ldpc_minsum_bf16" if msg_dtype == BF16 else "ldpc_minsum"
+    ms = report_shape(name, f"{label}{trap}, B={llrs.shape[0]}, "
                       f"{passes!r} iterations run per lane on average, "
                       f"{float((~ok).float().mean())!r} of the lanes "
                       f"unconverged after {DEFAULT_MAX_ITERS}",
-                      lambda: cuda_ldpc.decode_cuda(graph, llrs,
-                                                    trap_escape=trap_escape),
+                      lambda: cuda_ldpc.decode_cuda(graph, llrs, **kw),
                       reps, bound_ms, by, card)
     return ms, bound_ms, by
 
@@ -494,11 +546,13 @@ def time_pair(kernel, plain, kernel_reps: int,
 
 
 def time_decoders(graph, llrs: torch.Tensor, kernel_reps: int,
-                  plain_reps: int,
-                  trap_escape: bool = False) -> tuple[float, float]:
+                  plain_reps: int, trap_escape: bool = False,
+                  msg_dtype: torch.dtype = torch.float32
+                  ) -> tuple[float, float]:
+    kw = {"trap_escape": trap_escape, "msg_dtype": msg_dtype}
     return time_pair(
-        lambda: cuda_ldpc.decode_cuda(graph, llrs, trap_escape=trap_escape),
-        lambda: ldpc_ops.decode_plain(graph, llrs, trap_escape=trap_escape),
+        lambda: cuda_ldpc.decode_cuda(graph, llrs, **kw),
+        lambda: ldpc_ops.decode_plain(graph, llrs, **kw),
         kernel_reps, plain_reps)
 
 
@@ -547,11 +601,12 @@ def source_of(name: str) -> str:
 
 
 def phase_build() -> None:
-    """Both kernel libraries, one nvcc each, started together."""
+    """Both kernel libraries (the LDPC one holds both of its
+    instantiations), one nvcc each, started together."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        for job in [pool.submit(mod.load_library)
-                    for mod, _ in KERNELS.values()]:
+    mods = {mod for mod, _ in KERNELS.values()}
+    with ThreadPoolExecutor(len(mods)) as pool:
+        for job in [pool.submit(mod.load_library) for mod in mods]:
             job.result()
     for name, (mod, _) in KERNELS.items():
         print(f"kernel build {name}: {mod.LIBRARY.build_seconds!r} s "
@@ -1337,11 +1392,12 @@ def check_false_ok(label: str, rx: torch.Tensor, out: torch.Tensor,
 def launches_of(fn):
     """(fn's result, {kernel: launches during fn})."""
     torch.cuda.synchronize()
-    cuda_sc.launches = cuda_ldpc.launches = 0
+    cuda_sc.launches = cuda_ldpc.launches = cuda_ldpc.launches_bf16 = 0
     out = fn()
     torch.cuda.synchronize()
     return out, {"sc_windows": cuda_sc.launches,
-                 "ldpc_minsum": cuda_ldpc.launches}
+                 "ldpc_minsum": cuda_ldpc.launches,
+                 "ldpc_minsum_bf16": cuda_ldpc.launches_bf16}
 
 
 def require_launched(label: str, launches: dict, names) -> None:
@@ -2654,6 +2710,257 @@ def phase_parallel(dev: torch.device, card: str) -> None:
           f"phase_parallel: {time.perf_counter() - t0!r} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Slice 9: the bf16 fast modes and the tools
+# ---------------------------------------------------------------------------
+
+BF16_GATE_SEED = 9          # tests/test_ldpc.py:131
+BF16_TRAP = (CodeRate.R1_4, 1.1)   # the trap-escape batch: R1/4 waterfall
+
+
+def bf16_rate_gates(dev: torch.device) -> None:
+    """tests/test_ldpc.py:124-162's two points on the card: at sigma 0.5
+    bf16 decodes within 0.02 of float32, bits equal where both decode; at
+    sigma 0.72 the rates are within 0.04."""
+    code = get_code(RATE)
+    rng = np.random.default_rng(BF16_GATE_SEED)
+    info = torch.from_numpy(
+        rng.integers(0, 2, (256, code.k)).astype(np.float32)).to(dev)
+    cw = ldpc_ops.encode(code, info).cpu().numpy()
+    for sigma, gate in ((0.5, 0.02), (0.72, 0.04)):
+        noise = rng.normal(0, sigma, cw.shape)
+        llrs = torch.from_numpy((2.0 / sigma ** 2) * ((1.0 - 2.0 * cw) + noise)) \
+            .to(torch.float32).to(dev)
+        out32, ok32, _ = ldpc_ops.decode(code, llrs, msg_dtype=torch.float32)
+        out16, ok16, _ = ldpc_ops.decode(code, llrs, msg_dtype=BF16)
+        r32, r16 = float(ok32.float().mean()), float(ok16.float().mean())
+        both = ok32 & ok16
+        same = bool(torch.equal(out16[both], out32[both]))
+        print(f"bf16 rate gate sigma={sigma} B=256: ok rate f32 {r32!r}, "
+              f"bf16 {r16!r}, bits equal where both decode {same}",
+              flush=True)
+        if sigma == 0.5:
+            require(r32 >= 0.97 and r16 >= r32 - gate and same,
+                    f"bf16 rate gate at sigma {sigma}")
+        else:
+            require(abs(r32 - r16) <= gate, f"bf16 rate gate at sigma {sigma}")
+
+
+def bf16_vs_f32_shape(label: str, llrs: torch.Tensor, card: str,
+                      reps: int):
+    """The two instantiations' call ms at one shape (CUDA events around
+    back-to-back calls, in turns f32, bf16, bf16, f32), and the bf16 one's
+    device ms against its bound; returns (bf16 device ms, bound ms,
+    basis)."""
+    graph = ldpc_ops.graph_for(get_code(RATE), llrs.device)
+    ms = {}
+    for dtype in (torch.float32, BF16, BF16, torch.float32):
+        ms.setdefault(dtype, []).append(time_ms(
+            lambda: cuda_ldpc.decode_cuda(graph, llrs, msg_dtype=dtype), reps))
+    f32_ms, b16_ms = (sum(ms[d]) / 2 for d in (torch.float32, BF16))
+    print(f"kernel bf16 vs f32 messages [{label}, B={llrs.shape[0]}]: "
+          f"{b16_ms!r} vs {f32_ms!r} ms a call (CUDA events, turns f32 "
+          f"{ms[torch.float32]!r}, bf16 {ms[BF16]!r}), ratio "
+          f"{b16_ms / f32_ms!r} on {card}", flush=True)
+    _, bound_ms, by = time_ldpc_shape(label, RATE, llrs, card, reps,
+                                      msg_dtype=BF16)
+    return b16_ms, bound_ms, by
+
+
+def bf16_main_path(dev: torch.device) -> int:
+    """The presynced main path (B = 16,384, 17 dB) with bf16 LDPC messages
+    as the module default: the bench's gate, every decode through the bf16
+    kernel; returns its launches."""
+    code = get_code(RATE)
+    g_info = torch.Generator(device=dev).manual_seed(0)
+    info = torch.randint(0, 2, (BATCH, code.k), generator=g_info, device=dev,
+                         dtype=torch.uint8)
+
+    def run():
+        tx = P.tx_frame(CFG, MOD, RATE, info)
+        rx_in = W.add_noise_active(
+            tx, SNR_DB, torch.Generator(device=dev).manual_seed(1))
+        return P.rx_frame(CFG, MOD, RATE, rx_in)
+
+    with ldpc_ops.default_msg_dtype(BF16):
+        (out, ok, _), launches = launches_of(run)
+    require_launched("bf16 main path", launches, ("ldpc_minsum_bf16",))
+    require(launches["ldpc_minsum"] == 0,
+            "the bf16 main path launched the float32 kernel")
+    gate_decode(f"bf16 main path B={BATCH} {SNR_DB} dB", out, ok, info)
+    return launches["ldpc_minsum_bf16"]
+
+
+def bf16_chirp_cell(dev: torch.device, card: str) -> None:
+    """The chirp cell (level10, R1/4, 5 dB, 32 buffers of 256) with both bf16
+    modes on: the bench's gate, detection against the CPU's bf16 mode on 64
+    lanes, and frames/s and device busy beside the float32 path's on the
+    same buffers, in turns f32, bf16, bf16, f32."""
+    info, tx = chirp_tx(dev, 36)
+    rx_all = noisy_buffers(tx, torch.Generator(device=dev).manual_seed(37),
+                           CHIRP_BUFFERS, CHIRP_SNR_DB)
+    modes = {"f32": (False, torch.float32), "bf16": (True, BF16)}
+
+    def decode_all(mode):
+        chirp_bf16, msg = modes[mode]
+        with CH.bf16_mode(chirp_bf16), ldpc_ops.default_msg_dtype(msg):
+            return [decode_chirp(rx) for rx in rx_all]
+
+    outs, launches = launches_of(lambda: decode_all("bf16"))
+    require_launched("bf16 chirp cell", launches, ("ldpc_minsum_bf16",))
+    require(launches["ldpc_minsum"] == 0,
+            "the bf16 chirp cell launched the float32 kernel")
+    check_chirp(outs, info, f"bf16 modes, {CHIRP_SNR_DB} dB")
+
+    with CH.bf16_mode():
+        det = CH.detect_dual_chirp(CC, rx_all[0][:CPU_LANES],
+                                   MC.chirp_threshold)
+        ref = CH.detect_dual_chirp(CC, rx_all[0][:CPU_LANES].cpu(),
+                                   MC.chirp_threshold)
+    equal = {k: bool(torch.equal(det[k].cpu(), ref[k])) for k in DET_KEYS}
+    cfo_diff = float((det["cfo_hz"].cpu() - ref["cfo_hz"]).abs().max())
+    print(f"bf16 chirp detection card vs CPU B={CPU_LANES}: equal={equal} "
+          f"max_cfo_diff_hz={cfo_diff!r}", flush=True)
+    require(all(equal.values()) and cfo_diff <= 1e-3,
+            "bf16 chirp detection on the card differs from the CPU")
+
+    ms = {}
+    for mode in ("f32", "bf16", "bf16", "f32"):
+        decode_all(mode)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        oks = torch.stack([out[1] for out in decode_all(mode)]).cpu()
+        ms.setdefault(mode, []).append(
+            (time.perf_counter() - t0) / CHIRP_BUFFERS * 1e3)
+        require(float(oks.float().mean()) >= DECODE_GATE,
+                f"timed chirp cell ({mode}) ok rate")
+    for mode, (chirp_bf16, msg) in modes.items():
+        best = min(ms[mode])
+        with CH.bf16_mode(chirp_bf16), ldpc_ops.default_msg_dtype(msg):
+            busy = profile_busy_ms(lambda: decode_chirp(rx_all[0]), 5,
+                                   rows=0)
+        print(f"chirp cell {mode}: {CHIRP_BATCH / best * 1e3!r} frames/s "
+              f"(best {best!r} ms per buffer of {CHIRP_BATCH}, turns "
+              f"{ms[mode]!r}), device busy {busy!r} ms per buffer: idle "
+              f"share {1.0 - busy / best!r} on {card}", flush=True)
+
+
+def phase_bf16(dev: torch.device, card: str, deint: torch.Tensor):
+    """The bf16 fast modes: the bf16 kernel lane-exact against the plain
+    bf16 decoder (the main path's 17 dB LLRs, the sigma 0.62 waterfall at
+    B = 16,384, an R1/4 trap-escape batch), its time beside the float32
+    kernel's and its bound, test_ldpc.py's rate gates, the main
+    path and the chirp cell with the modes on.  Returns the kernels line's
+    row values (launches, max abs error, ms, plain ms, bound ms, basis)."""
+    t0 = time.perf_counter()
+    graph = ldpc_ops.graph_for(get_code(RATE), dev)
+    err = compare_decoders(RATE, deint, "main path 17 dB LLRs",
+                           msg_dtype=BF16)
+    wf = torch.from_numpy(waterfall_llrs(RATE, 0.62, BATCH)).to(dev)
+    compare_decoders(RATE, wf, "waterfall R1_2 sigma=0.62", msg_dtype=BF16)
+    rate, sigma = BF16_TRAP
+    trap = torch.from_numpy(waterfall_llrs(rate, sigma, WATERFALL_BATCH)) \
+        .to(dev)
+    compare_decoders(rate, trap, f"waterfall {GOLDEN_NAMES[rate]} "
+                     f"sigma={sigma}", trap_escape=True, msg_dtype=BF16)
+
+    k_ms, p_ms = time_decoders(graph, deint, kernel_reps=20, plain_reps=5,
+                               msg_dtype=BF16)
+    print(f"bf16 decode at 17 dB LLRs B={deint.shape[0]}: kernel {k_ms!r} "
+          f"ms, plain {p_ms!r} ms (calls, CUDA events) on {card}", flush=True)
+    _, bound_ms, by = bf16_vs_f32_shape("R1/2 17 dB main path", deint, card,
+                                        reps=20)
+    bf16_vs_f32_shape("R1/2 waterfall sigma=0.62", wf, card, reps=5)
+    time_ldpc_shape(f"{GOLDEN_NAMES[rate]} waterfall sigma={sigma}", rate,
+                    trap, card, reps=5, trap_escape=True, msg_dtype=BF16)
+    for label, g, llrs, trap_escape in (
+            ("R1_2 waterfall sigma=0.62", graph, wf, False),
+            (f"{GOLDEN_NAMES[rate]} waterfall sigma={sigma}, trap_escape",
+             ldpc_ops.graph_for(get_code(rate), dev), trap, True)):
+        k_w, p_w = time_decoders(g, llrs, kernel_reps=5, plain_reps=2,
+                                 trap_escape=trap_escape, msg_dtype=BF16)
+        print(f"bf16 decode at {label} B={llrs.shape[0]}: kernel {k_w!r} "
+              f"ms, plain {p_w!r} ms (calls, CUDA events) on {card}",
+              flush=True)
+
+    bf16_rate_gates(dev)
+    launches = bf16_main_path(dev)
+    bf16_chirp_cell(dev, card)
+    require(ldpc_ops._DEFAULT_MSG_DTYPE == torch.float32 and not CH._BF16,
+            "phase_bf16 left a bf16 mode on")
+    print(f"phase_bf16: {time.perf_counter() - t0!r} s", flush=True)
+    return launches, err, k_ms, p_ms, bound_ms, by
+
+
+TOOLS_DIR = ROOT / "tools"
+BER_FRAMES = 256
+BER_FER_GAP = 0.04          # tools/ber_curves.py --bf16's overlay
+
+
+def run_tool(name: str, argv: list) -> tuple[dict, dict]:
+    """tools/<name>.py's main(argv) in this process, its output printed;
+    requires exit 0 and returns (the JSON object of its last line, the
+    kernel launches during the run)."""
+    spec = importlib.util.spec_from_file_location(name, TOOLS_DIR / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc, launches = launches_of(lambda: mod.main(argv))
+    wall = time.perf_counter() - t0
+    out = buf.getvalue().strip()
+    print(f"--- tools/{name}.py {' '.join(argv)}: exit {rc}, {wall!r} s, "
+          f"kernel launches {launches}\n{out}", flush=True)
+    require(rc == 0, f"tools/{name}.py {argv} exited {rc}")
+    return json.loads(out.splitlines()[-1]), launches
+
+
+def phase_tools(dev: torch.device, card: str) -> None:
+    """Each tool twin's main on the card at a small size: exit 0 and its
+    result printed; the ber_curves f32 and bf16 overlays within 0.04 FER
+    at every point, the bf16 run through the bf16 kernel only."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        curves = {}
+        for mode in ("f32", "bf16"):
+            argv = ["--frames", str(BER_FRAMES), "--json",
+                    str(Path(tmp) / f"ber_{mode}.json")]
+            curves[mode], launches = run_tool(
+                "torch_ber_curves", argv + (["--bf16"] if mode == "bf16"
+                                            else []))
+            want = "ldpc_minsum_bf16" if mode == "bf16" else "ldpc_minsum"
+            other = "ldpc_minsum" if mode == "bf16" else "ldpc_minsum_bf16"
+            require(launches[want] > 0 and launches[other] == 0,
+                    f"ber_curves {mode} ran the wrong LDPC kernel")
+    gap = max(abs(a - b) for r32, r16 in zip(curves["f32"]["rows"],
+                                             curves["bf16"]["rows"])
+              for a, b in zip(r32["fer"], r16["fer"]))
+    for mode, c in curves.items():
+        print(f"ber_curves {mode}: {c['total_pipelines'] / c['wall_seconds']!r}"
+              f" pipelines/s ({c['total_pipelines']} in {c['wall_seconds']!r}"
+              f" s, set-up included) on {card}", flush=True)
+    print(f"ber_curves bf16 vs f32: largest FER gap {gap!r} (limit "
+          f"{BER_FER_GAP})", flush=True)
+    require(gap <= BER_FER_GAP, f"ber_curves bf16 overlay: FER gap {gap}")
+
+    res, _ = run_tool("torch_test_hf_reality", ["--quick"])
+    require(all(res["gates"].values()), f"test_hf_reality gates {res}")
+    res, _ = run_tool("torch_cli_simulator", [])
+    require(res["ok"], "cli_simulator session failed")
+    res, _ = run_tool("torch_threaded_simulator", ["--timeout", "240"])
+    require(res["ok"], "threaded_simulator session failed")
+    for extra in ([], ["--stream"]):
+        res, _ = run_tool("torch_test_iwaveform", ["--frames", "5", *extra])
+        require(res["decode_rate"] == 1.0,
+                f"test_iwaveform {extra}: decode {res['decode_rate']}")
+    for extra in ([], ["--bf16"]):
+        res, _ = run_tool("torch_profile_acquisition",
+                          ["--seconds", "2", *extra])
+        require(res["found"] == 1.0, f"profile_acquisition {extra}: {res}")
+    print(f"phase_tools: {time.perf_counter() - t0!r} s", flush=True)
+
+
 def main() -> None:
     t0 = time.perf_counter()
     card = card_line()
@@ -2668,6 +2975,7 @@ def main() -> None:
     ldpc_launches, deint, ldpc_err = phase_main_path(dev)
     ldpc_ms, ldpc_plain_ms, ldpc_bound_ms, ldpc_by = phase_timing(dev, card,
                                                                   deint)
+    bf16_row = phase_bf16(dev, card, deint)
 
     _, tx = cox_tx(dev, 10)
     rx = noisy_buffers(tx, torch.Generator(device=dev).manual_seed(20), 1)[0]
@@ -2695,6 +3003,7 @@ def main() -> None:
     phase_protocol(dev, card)
     phase_sweep(dev, card)
     phase_parallel(dev, card)
+    phase_tools(dev, card)
 
     require(not any(m == "jax" or m.startswith("jax.")
                     or m == "projectultra_tpu"
@@ -2708,13 +3017,15 @@ def main() -> None:
               f"share {bound_ms / ms!r}", flush=True)
     print(card, flush=True)
     # launches: each kernel's count in the run of its own slice's path
-    # (the LDPC kernel's in the slice-1 path; the counts of the Cox and
-    # chirp paths are printed above).  ms and bound_ms at that path's shape;
-    # no single PyTorch call computes either function (library_ms null).
+    # (the LDPC kernel's in the slice-1 path, its bf16 instantiation's in
+    # that path with bf16 messages; the counts of the Cox and chirp paths
+    # are printed above).  ms and bound_ms at that path's shape; no single
+    # PyTorch call computes any of the three (library_ms null).
     rows = [("ldpc_minsum", ldpc_launches, ldpc_err, ldpc_ms, ldpc_plain_ms,
              ldpc_bound_ms, ldpc_by),
             ("sc_windows", cox_launches["sc_windows"], sc_err, sc_ms,
-             sc_plain_ms, sc_bound_ms, sc_by)]
+             sc_plain_ms, sc_bound_ms, sc_by),
+            ("ldpc_minsum_bf16", *bf16_row)]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source_of(name),
          "replaces": KERNELS[name][1], "launches": launches,

@@ -60,7 +60,19 @@
 //
 // Floating point: the file is compiled with --fmad=false, so no multiply
 // is contracted into an add; the additions run in the order written.
+//
+// bfloat16 messages (the JAX decoder's msg_dtype=bfloat16 fast mode, an
+// XLA decode there, not a Pallas one): a second instantiation, MSG_BF16,
+// rounds each v2c value (the channel LLR on the first pass, the clamped
+// difference after it) to bfloat16, nearest-even, and reads it back as
+// float32 where the row pass makes it, before the two-minima update --
+// exactly where the JAX decoder stores its bf16 messages.  Its sign is
+// tested on the rounded value (a tiny negative LLR can round to -0, which
+// is not negative).  c2v stays float32 in shared memory: 0.75 times a
+// bfloat16 magnitude needs up to 10 significant bits.  The float32
+// instantiation compiles to the same code as before (if constexpr).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -70,13 +82,24 @@ constexpr int kMaxDegree = 7;    // check degree bound (the codes have D = 7)
 constexpr float kScale = 0.75f;  // MIN_SUM_SCALE
 constexpr float kClamp = 50.0f;  // V2C_CLAMP
 
+// A v2c value as the decoder stores it: rounded to bfloat16 and read back
+// when MSG_BF16, else unchanged.
+template <bool MSG_BF16>
+__device__ __forceinline__ float stored(float x) {
+  if constexpr (MSG_BF16) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  } else {
+    return x;
+  }
+}
+
 // Check-row pass for row i, unrolled for K >= deg slots.  Reads the row's
 // v2c (first: the channel LLRs; later: clamp(llr_total[var] - c2v)), writes
 // the row's new c2v into msg (d-major: edge (i, d) at d*m + i) when
 // `update` is set, and returns whether the row is unsatisfied: by the hard
 // decision of llr_total when `check` is set, else (first) by the hard
 // decision of the channel LLRs, whose signs the update reads anyway.
-template <int K>
+template <int K, bool MSG_BF16>
 __device__ __forceinline__ bool row_pass(
     int i, int m, int D, const int* __restrict__ row_vars,
     const int* __restrict__ row_deg, const float* llr_in,
@@ -92,10 +115,10 @@ __device__ __forceinline__ bool row_pass(
       if (check) parity ^= (llr_tot[var] < 0.0f) ? 1 : 0;
       if (update) {
         if (first) {
-          v[d] = llr_in[var];
+          v[d] = stored<MSG_BF16>(llr_in[var]);
         } else {
           const float x = __fsub_rn(llr_tot[var], msg[d * m + i]);
-          v[d] = fminf(fmaxf(x, -kClamp), kClamp);
+          v[d] = stored<MSG_BF16>(fminf(fmaxf(x, -kClamp), kClamp));
         }
       }
     }
@@ -133,18 +156,19 @@ __device__ __forceinline__ bool row_pass(
 // The row pass with K chosen by the warp's largest degree: rows are sorted
 // by degree, descending, and a warp's rows are 32 consecutive ones starting
 // at a multiple of 32, so the first of them has the largest degree.
+template <bool MSG_BF16>
 __device__ __forceinline__ bool row_pass_sorted(
     int i, int m, int D, const int* __restrict__ row_vars,
     const int* __restrict__ row_deg, const float* llr_in,
     const float* llr_tot, float* msg, bool first, bool check, bool update) {
   const int warp_deg = __ldg(row_deg + (i & ~31));
   if (warp_deg <= 3)
-    return row_pass<3>(i, m, D, row_vars, row_deg, llr_in, llr_tot, msg,
+    return row_pass<3, MSG_BF16>(i, m, D, row_vars, row_deg, llr_in, llr_tot, msg,
                        first, check, update);
   if (warp_deg <= 5)
-    return row_pass<5>(i, m, D, row_vars, row_deg, llr_in, llr_tot, msg,
+    return row_pass<5, MSG_BF16>(i, m, D, row_vars, row_deg, llr_in, llr_tot, msg,
                        first, check, update);
-  return row_pass<kMaxDegree>(i, m, D, row_vars, row_deg, llr_in, llr_tot,
+  return row_pass<kMaxDegree, MSG_BF16>(i, m, D, row_vars, row_deg, llr_in, llr_tot,
                               msg, first, check, update);
 }
 
@@ -178,7 +202,7 @@ __device__ __forceinline__ void var_pass(
   }
 }
 
-template <int BLOCK>
+template <int BLOCK, bool MSG_BF16>
 __global__ void __launch_bounds__(BLOCK) ldpc_minsum_kernel(
     const float* __restrict__ llr, const int* __restrict__ row_vars,
     const int* __restrict__ row_deg, const int* __restrict__ var_edges,
@@ -206,7 +230,7 @@ __global__ void __launch_bounds__(BLOCK) ldpc_minsum_kernel(
     // check.
     int noisy = 0;
     for (int i = threadIdx.x; i < m; i += blockDim.x)
-      noisy |= row_pass_sorted(i, m, D, row_vars, row_deg, llr_in, llr_tot,
+      noisy |= row_pass_sorted<MSG_BF16>(i, m, D, row_vars, row_deg, llr_in, llr_tot,
                                msg, /*first=*/true, /*check=*/false,
                                /*update=*/true);
     bool clean = !__syncthreads_or(noisy);
@@ -219,7 +243,7 @@ __global__ void __launch_bounds__(BLOCK) ldpc_minsum_kernel(
       const bool more = it + 1 < max_iters;
       int unsat = 0;
       for (int i = threadIdx.x; i < m; i += blockDim.x)
-        unsat |= row_pass_sorted(i, m, D, row_vars, row_deg, llr_in, llr_tot,
+        unsat |= row_pass_sorted<MSG_BF16>(i, m, D, row_vars, row_deg, llr_in, llr_tot,
                                  msg, /*first=*/false, /*check=*/true,
                                  /*update=*/more && !clean);
       if (!__syncthreads_or(unsat)) {
@@ -253,12 +277,30 @@ __global__ void __launch_bounds__(BLOCK) ldpc_minsum_kernel(
 using Kernel = void (*)(const float*, const int*, const int*, const int*,
                         const int*, float*, uint8_t*, int*, int, int, int, int, int);
 
+template <bool MSG_BF16>
 Kernel kernel_for(int threads) {
   switch (threads) {
-    case 256: return ldpc_minsum_kernel<256>;
-    case 1024: return ldpc_minsum_kernel<1024>;
+    case 256: return ldpc_minsum_kernel<256, MSG_BF16>;
+    case 1024: return ldpc_minsum_kernel<1024, MSG_BF16>;
     default: return nullptr;
   }
+}
+
+int launch(Kernel kernel, const float* llr, const int* row_vars,
+           const int* row_deg, const int* var_edges, const int* var_deg,
+           float* llr_out, uint8_t* ok, int* iters, int B, int n, int m,
+           int D, int Dv, int max_iters, int threads, void* stream) {
+  if (kernel == nullptr || D > kMaxDegree || D < 1 || n < 4 || n % 4 != 0 ||
+      m < 1 || Dv < 1 || max_iters < 0 || B < 0 ||
+      ((uintptr_t)llr | (uintptr_t)llr_out) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(2 * n + D * m) * sizeof(float);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;  // 19 KB at R1/4
+  if (B == 0) return 0;
+  kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
+      llr, row_vars, row_deg, var_edges, var_deg, llr_out, ok, iters, n, m, D, Dv,
+      max_iters);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -277,18 +319,20 @@ int ldpc_minsum_decode(const float* llr, const int* row_vars,
                        const int* var_deg, float* llr_out, uint8_t* ok, int* iters, int B, int n,
                        int m, int D, int Dv, int max_iters, int threads,
                        void* stream) {
-  const Kernel kernel = kernel_for(threads);
-  if (kernel == nullptr || D > kMaxDegree || D < 1 || n < 4 || n % 4 != 0 ||
-      m < 1 || Dv < 1 || max_iters < 0 || B < 0 ||
-      ((uintptr_t)llr | (uintptr_t)llr_out) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(2 * n + D * m) * sizeof(float);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;  // 19 KB at R1/4
-  if (B == 0) return 0;
-  kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-      llr, row_vars, row_deg, var_edges, var_deg, llr_out, ok, iters, n, m, D, Dv,
-      max_iters);
-  return (int)cudaGetLastError();
+  return launch(kernel_for<false>(threads), llr, row_vars, row_deg,
+                var_edges, var_deg, llr_out, ok, iters, B, n, m, D, Dv,
+                max_iters, threads, stream);
+}
+
+// The same decoder with bfloat16 v2c messages (arguments as above).
+int ldpc_minsum_decode_bf16(const float* llr, const int* row_vars,
+                            const int* row_deg, const int* var_edges,
+                            const int* var_deg, float* llr_out, uint8_t* ok,
+                            int* iters, int B, int n, int m, int D, int Dv,
+                            int max_iters, int threads, void* stream) {
+  return launch(kernel_for<true>(threads), llr, row_vars, row_deg,
+                var_edges, var_deg, llr_out, ok, iters, B, n, m, D, Dv,
+                max_iters, threads, stream);
 }
 
 const char* ldpc_minsum_error_string(int code) {

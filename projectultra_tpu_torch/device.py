@@ -15,6 +15,7 @@ copy per device of a constant table built on the host.
 from __future__ import annotations
 
 import functools
+import subprocess
 
 import numpy as np
 import torch
@@ -50,3 +51,18 @@ def host_table(device: torch.device, fn, *args):
         return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device)
                      for x in out)
     return torch.from_numpy(np.ascontiguousarray(out)).to(device)
+
+
+def card_line(device: torch.device) -> str:
+    """What a measurement on ``device`` ran on: for a CUDA device the
+    card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them, else "cpu"."""
+    if device.type != "cuda":
+        return "cpu"
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+         f"--id={index}"], check=True, capture_output=True, text=True,
+        timeout=60).stdout
+    return out.strip().splitlines()[0].strip()

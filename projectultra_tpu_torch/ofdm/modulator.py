@@ -202,6 +202,18 @@ class Modulator(nn.Module):
 
 
 @functools.lru_cache(maxsize=None)
+def samples_per_symbol(config: ModemConfig) -> int:
+    """Samples of one OFDM symbol with its cyclic prefix."""
+    return config.symbol_duration
+
+
+def bits_per_ofdm_symbol(config: ModemConfig, mod: Modulation) -> int:
+    """Coded bits one OFDM symbol carries: data carriers times bits per
+    carrier."""
+    cm = carriers_mod.carrier_map(config)
+    return len(cm.data_idx) * bits_per_symbol(mod)
+
+
 def _modulator_for(config: ModemConfig, mod: Modulation, S: int,
                    t_offset: int, device: torch.device) -> Modulator:
     return Modulator(config, mod, S, t_offset).to(device)

@@ -9,7 +9,11 @@ back to the plain PyTorch decoder.
 
 The kernel launches on PyTorch's current stream, does not synchronise and
 allocates nothing: this wrapper allocates the outputs with ``torch.empty``.
-``launches`` counts the kernel launches made through ``decode_cuda``.
+The library holds two instantiations of the kernel, one per edge-message
+dtype (``ldpc_minsum_decode`` with float32 messages,
+``ldpc_minsum_decode_bf16`` with bfloat16 ones; the LLRs in and out are
+float32 in both).  ``launches`` counts the float32 kernel's launches made
+through ``decode_cuda``, ``launches_bf16`` the bfloat16 kernel's.
 
 Launch shape: one block per codeword, of ``block_threads_for(B, SMs)``
 threads: 256 at large batches, 1,024 at small ones, where the few blocks'
@@ -27,21 +31,24 @@ import torch
 
 from ..fec.ldpc import DEFAULT_MAX_ITERS
 from . import cuda_build
-from .ldpc import trap_escape_llrs
+from .ldpc import msg_dtype_of, trap_escape_llrs
 
 SOURCE = cuda_build.CSRC_DIR / "ldpc_minsum.cu"
 BUILD_DIR = cuda_build.BUILD_DIR
 FLAGS = ("--fmad=false",)
 
-#: Kernel launches made through decode_cuda (a run resets it to 0 to show
-#: that its path went through the kernel).
+#: Float32-message kernel launches made through decode_cuda (a run resets
+#: it to 0 to show that its path went through the kernel).
 launches = 0
+#: Bfloat16-message kernel launches made through decode_cuda.
+launches_bf16 = 0
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.ldpc_minsum_decode.argtypes = [vp] * 8 + [ci] * 7 + [vp]
-    lib.ldpc_minsum_decode.restype = ci
+    for entry in (lib.ldpc_minsum_decode, lib.ldpc_minsum_decode_bf16):
+        entry.argtypes = [vp] * 8 + [ci] * 7 + [vp]
+        entry.restype = ci
     lib.ldpc_minsum_error_string.argtypes = [ci]
     lib.ldpc_minsum_error_string.restype = ctypes.c_char_p
 
@@ -83,16 +90,18 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} is not contiguous")
 
 
-def launch(graph, llrs: torch.Tensor, max_iters: int):
-    """One kernel launch over a [B, n] float32 CUDA batch.
+def launch(graph, llrs: torch.Tensor, max_iters: int,
+           msg_dtype: torch.dtype = torch.float32):
+    """One kernel launch over a [B, n] float32 CUDA batch, with edge
+    messages of ``msg_dtype`` (float32 or bfloat16).
 
     Returns (llr_total [B, n] f32, ok [B] bool, iters [B] int32)."""
-    global launches
+    global launches, launches_bf16
     if llrs.device.type != "cuda":
         raise ValueError(f"the LDPC kernel needs a CUDA tensor, got {llrs.device}")
     if llrs.dtype != torch.float32:
-        raise ValueError(f"the LDPC kernel takes float32 LLRs, got {llrs.dtype} "
-                         "(bf16 messages are not implemented)")
+        raise ValueError(f"the LDPC kernel takes float32 LLRs, got {llrs.dtype}")
+    bf16 = msg_dtype_of(msg_dtype) == torch.bfloat16
     if llrs.dim() != 2:
         raise ValueError(f"llrs must be [B, n], got shape {tuple(llrs.shape)}")
     B = llrs.shape[0]
@@ -118,8 +127,9 @@ def launch(graph, llrs: torch.Tensor, max_iters: int):
         return llr_out, ok, iters
     lib = load_library()
     threads = block_threads_for(B, cuda_build.sm_count(dev))
+    entry = lib.ldpc_minsum_decode_bf16 if bf16 else lib.ldpc_minsum_decode
     with torch.cuda.device(dev):
-        err = lib.ldpc_minsum_decode(
+        err = entry(
             llrs.data_ptr(), graph.sorted_row_vars.data_ptr(),
             graph.sorted_row_deg.data_ptr(), graph.sorted_var_edges.data_ptr(),
             graph.var_deg.data_ptr(),
@@ -128,28 +138,36 @@ def launch(graph, llrs: torch.Tensor, max_iters: int):
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         msg = lib.ldpc_minsum_error_string(err).decode()
-        raise RuntimeError(f"ldpc_minsum_decode launch failed: {msg} ({err})")
-    launches += 1
+        raise RuntimeError(f"ldpc_minsum_decode{'_bf16' if bf16 else ''} "
+                           f"launch failed: {msg} ({err})")
+    if bf16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return llr_out, ok, iters
 
 
 def decode_cuda(graph, llrs: torch.Tensor,
                 max_iters: int = DEFAULT_MAX_ITERS,
-                trap_escape: bool = False):
+                trap_escape: bool = False, msg_dtype=None):
     """The kernel's counterpart of ``ops.ldpc.decode_plain``: returns
     (llr_total [B, n] f32, ok [B] bool, iters [B] int32).
 
-    ``trap_escape`` is a second launch over the failed lanes only, on their
-    channel LLRs with the bits of unsatisfied checks erased."""
+    ``msg_dtype`` (None: the module default of ``ops.ldpc``) picks the
+    kernel's instantiation.  ``trap_escape`` is a second launch over the
+    failed lanes only, on their channel LLRs with the bits of unsatisfied
+    checks erased."""
+    msg_dtype = msg_dtype_of(msg_dtype)
     llr_in = llrs.contiguous()
     if llr_in.data_ptr() % 16:  # a view at an odd offset: copy it aligned
         llr_in = llr_in.clone()
-    llr_total, ok, iters = launch(graph, llr_in, max_iters)
+    llr_total, ok, iters = launch(graph, llr_in, max_iters, msg_dtype)
     if trap_escape:
         failed = torch.nonzero(~ok).squeeze(1)
         if failed.numel():
             llr2 = trap_escape_llrs(graph, llr_in[failed], llr_total[failed])
-            llr_t2, ok2, iters2 = launch(graph, llr2.contiguous(), max_iters)
+            llr_t2, ok2, iters2 = launch(graph, llr2.contiguous(), max_iters,
+                                         msg_dtype)
             rescued = failed[ok2]
             llr_total[rescued] = llr_t2[ok2]
             iters[rescued] = iters2[ok2]

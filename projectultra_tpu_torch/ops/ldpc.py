@@ -9,8 +9,8 @@ plain PyTorch version
 kernel is tested against on the card.  ``decode_hard`` and the stream
 helpers ``decode_soft_stream``/``decode_hard_stream`` wrap ``decode``.
 
-Arithmetic contract (identical to the JAX decoder in float32 messages, so
-bits, ok flags and iteration counts agree lane for lane):
+Arithmetic contract (identical to the JAX decoder, so bits, ok flags and
+iteration counts agree lane for lane):
 
 * two-minima min-sum per check row, first-occurrence argmin over the row's
   edges in their stored order, c2v = (sign * min_excl) * 0.75;
@@ -19,12 +19,22 @@ bits, ok flags and iteration counts agree lane for lane):
 * llr_total = llr_in + c2v[e0] + c2v[e1] + ..., summed left to right over a
   variable's edges in ascending check order (``_var_edge_table``);
 * iteration counts: 0-based iteration of convergence, else ``max_iters``;
-  converged lanes are frozen.
+  converged lanes are frozen;
+* ``msg_dtype=torch.bfloat16`` (the fast mode): every v2c message is
+  rounded to bfloat16 (nearest, ties to even) where it is made -- the
+  channel LLRs of iteration 0 and each clamped later message -- and read
+  back as float32 before any arithmetic; c2v, the totals, the channel
+  LLRs, the syndrome and the trap-escape retry stay float32.  The default
+  is float32, or bfloat16 when ``ULTRA_LDPC_BF16=1`` was set when this
+  module was imported (as the JAX package reads it), for every caller that
+  passes no ``msg_dtype``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import os
 
 import numpy as np
 import torch
@@ -34,6 +44,32 @@ from ..device import resolve
 from ..fec.ldpc import (DEFAULT_MAX_ITERS, HARD_LLR, LDPCCode,
                         MIN_SUM_SCALE, V2C_CLAMP)
 from ..utils.bits import bits_to_bytes, bytes_to_bits
+
+MSG_DTYPES = (torch.float32, torch.bfloat16)
+_DEFAULT_MSG_DTYPE = (torch.bfloat16 if os.environ.get("ULTRA_LDPC_BF16") == "1"
+                      else torch.float32)
+
+
+@contextlib.contextmanager
+def default_msg_dtype(dtype: torch.dtype):
+    """Every decode that passes no ``msg_dtype`` uses ``dtype`` inside the
+    block (what ``ULTRA_LDPC_BF16=1`` sets at import); restored after."""
+    global _DEFAULT_MSG_DTYPE
+    saved, _DEFAULT_MSG_DTYPE = _DEFAULT_MSG_DTYPE, msg_dtype_of(dtype)
+    try:
+        yield
+    finally:
+        _DEFAULT_MSG_DTYPE = saved
+
+
+def msg_dtype_of(msg_dtype) -> torch.dtype:
+    """The edge-message dtype a decode runs with: ``msg_dtype``, or the
+    module default when it is None; raises on any other dtype."""
+    dtype = _DEFAULT_MSG_DTYPE if msg_dtype is None else msg_dtype
+    if dtype not in MSG_DTYPES:
+        raise ValueError(f"LDPC edge messages are float32 or bfloat16, "
+                         f"not {dtype}")
+    return dtype
 
 
 @functools.lru_cache(maxsize=None)
@@ -179,30 +215,41 @@ def _llr_ok(graph: LDPCGraph, llr_in: torch.Tensor, c2v: torch.Tensor):
     return llr_total, ok
 
 
-def _next_v2c(graph: LDPCGraph, llr_total: torch.Tensor, c2v: torch.Tensor):
+def _stored(v2c: torch.Tensor, msg_dtype: torch.dtype) -> torch.Tensor:
+    """v2c as the decoder stores it: rounded to ``msg_dtype`` and read back
+    as float32 (the identity for float32 messages)."""
+    if msg_dtype == torch.float32:
+        return v2c
+    return v2c.to(msg_dtype).to(torch.float32)
+
+
+def _next_v2c(graph: LDPCGraph, llr_total: torch.Tensor, c2v: torch.Tensor,
+              msg_dtype: torch.dtype = torch.float32):
     v = torch.clamp(llr_total[:, graph.row_vars.T] - c2v, -V2C_CLAMP, V2C_CLAMP)
-    return torch.where(graph.row_mask.T, v, 0.0)
+    return _stored(torch.where(graph.row_mask.T, v, 0.0), msg_dtype)
 
 
-def _run_plain(graph: LDPCGraph, llr_in: torch.Tensor, max_iters: int):
+def _run_plain(graph: LDPCGraph, llr_in: torch.Tensor, max_iters: int,
+               msg_dtype: torch.dtype = torch.float32):
     B = llr_in.shape[0]
     dev = llr_in.device
     if max_iters == 0:
         return (llr_in, torch.zeros(B, dtype=torch.bool, device=dev),
                 torch.zeros(B, dtype=torch.int32, device=dev))
     # Iteration 0 is stateless: v2c is the (unclamped) channel LLR.
-    v2c0 = torch.where(graph.row_mask.T, llr_in[:, graph.row_vars.T], 0.0)
+    v2c0 = _stored(torch.where(graph.row_mask.T, llr_in[:, graph.row_vars.T],
+                               0.0), msg_dtype)
     c2v = _c2v(graph, v2c0)
     llr_total, done = _llr_ok(graph, llr_in, c2v)
     iters = torch.where(done, 0, max_iters).to(torch.int32)
     if max_iters <= 1 or bool(done.all()):
         return llr_total, done, iters
-    v2c = _next_v2c(graph, llr_total, c2v)
+    v2c = _next_v2c(graph, llr_total, c2v, msg_dtype)
     it = 1
     while it < max_iters and not bool(done.all()):
         c2v = _c2v(graph, v2c)
         llr_new, ok = _llr_ok(graph, llr_in, c2v)
-        v2c_new = _next_v2c(graph, llr_new, c2v)
+        v2c_new = _next_v2c(graph, llr_new, c2v, msg_dtype)
         # Freeze converged lanes.
         v2c = torch.where(done[:, None, None], v2c, v2c_new)
         llr_total = torch.where(done[:, None], llr_total, llr_new)
@@ -228,15 +275,16 @@ def trap_escape_llrs(graph: LDPCGraph, llr_in: torch.Tensor,
 
 def decode_plain(graph: LDPCGraph, llrs: torch.Tensor,
                  max_iters: int = DEFAULT_MAX_ITERS,
-                 trap_escape: bool = False):
+                 trap_escape: bool = False, msg_dtype=None):
     """Plain PyTorch flooding min-sum on any device.
 
     Returns (llr_total [B, n] f32, ok [B] bool, iters [B] int32)."""
+    msg_dtype = msg_dtype_of(msg_dtype)
     llr_in = llrs.to(torch.float32)
-    llr_total, done, iters = _run_plain(graph, llr_in, max_iters)
+    llr_total, done, iters = _run_plain(graph, llr_in, max_iters, msg_dtype)
     if trap_escape and not bool(done.all()):
         llr2 = trap_escape_llrs(graph, llr_in, llr_total)
-        llr_t2, done2, iters2 = _run_plain(graph, llr2, max_iters)
+        llr_t2, done2, iters2 = _run_plain(graph, llr2, max_iters, msg_dtype)
         take = ~done & done2
         llr_total = torch.where(take[:, None], llr_t2, llr_total)
         iters = torch.where(take, iters2, iters)
@@ -246,26 +294,31 @@ def decode_plain(graph: LDPCGraph, llrs: torch.Tensor,
 
 def decode_totals(graph: LDPCGraph, llrs: torch.Tensor,
                   max_iters: int = DEFAULT_MAX_ITERS,
-                  trap_escape: bool = False):
+                  trap_escape: bool = False, msg_dtype=None):
     """Device dispatch: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors.  Returns (llr_total, ok, iters)."""
+    msg_dtype = msg_dtype_of(msg_dtype)
     if llrs.device.type == "cuda":
         from . import cuda_ldpc  # imports this module
-        return cuda_ldpc.decode_cuda(graph, llrs, max_iters, trap_escape)
+        return cuda_ldpc.decode_cuda(graph, llrs, max_iters, trap_escape,
+                                     msg_dtype)
     if llrs.device.type != "cpu":
         raise ValueError(f"LDPC decode runs on cuda or cpu, not {llrs.device}")
-    return decode_plain(graph, llrs, max_iters, trap_escape)
+    return decode_plain(graph, llrs, max_iters, trap_escape, msg_dtype)
 
 
 def decode(code: LDPCCode, llrs: torch.Tensor,
-           max_iters: int = DEFAULT_MAX_ITERS, trap_escape: bool = False):
+           max_iters: int = DEFAULT_MAX_ITERS, trap_escape: bool = False,
+           msg_dtype=None):
     """Flooding min-sum decode of [B, n] float32 LLRs (positive = bit 0).
 
     Returns info_bits [B, k] uint8, success [B] bool, iters [B] int32 with
-    the JAX decoder's semantics (f32 messages; see the module docstring).
+    the JAX decoder's semantics (``msg_dtype`` None, float32 or bfloat16;
+    see the module docstring).
     """
     graph = graph_for(code, llrs.device)
-    llr_total, ok, iters = decode_totals(graph, llrs, max_iters, trap_escape)
+    llr_total, ok, iters = decode_totals(graph, llrs, max_iters, trap_escape,
+                                         msg_dtype)
     return (llr_total[:, :code.k] < 0).to(torch.uint8), ok, iters
 
 

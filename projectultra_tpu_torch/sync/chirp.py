@@ -21,21 +21,60 @@ so reported positions and correlations keep full-rate exactness:
 
 Everything is plain PyTorch (``torch.fft``, ``F.conv1d``, ``torch.matmul``,
 indexing) in float32 with TF32 off, and no branch reads the device: every
-decision is a tensor select.  The JAX package's opt-in bf16 refine
-(``ULTRA_CHIRP_BF16``) is not ported.  Host tables are numpy functions,
-pinned array-equal to the JAX package's, and are cached per device.
+decision is a tensor select.  Host tables are numpy functions, pinned
+array-equal to the JAX package's, and are cached per device.
+
+The bf16 mode (``ULTRA_CHIRP_BF16=1`` when this module is imported, as the
+JAX package reads it; ``bf16_mode`` sets it for a block) rounds where the
+JAX package's does: the decimation conv's and the refine matmuls' operands
+to bfloat16 with float32 products and sums (rounded operands multiplied
+in float32: a product of two bfloat16 values is exact in float32), the
+refine's squared samples to a bfloat16 product, and the coarse
+correlations to bfloat16 for the candidate selection, whose masks, maxima
+and comparisons then run in bfloat16 as JAX's do.  The coarse FFT and the
+window energies stay float32, and every accept gate re-tests the refined
+float32 peak.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import os
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..ops.sc_windows import window_sum
+
+_BF16 = os.environ.get("ULTRA_CHIRP_BF16") == "1"
+
+
+@contextlib.contextmanager
+def bf16_mode(on: bool = True):
+    """The acquisition's bf16 mode on (or off) inside the block, restored
+    after it."""
+    global _BF16
+    saved, _BF16 = _BF16, bool(on)
+    try:
+        yield
+    finally:
+        _BF16 = saved
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bfloat16 (nearest, ties to even), as float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _mxu_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in float32; in the bf16 mode both operands are rounded to
+    bfloat16 first (float32 products and sums)."""
+    if _BF16:
+        return _bf16(a) @ _bf16(b)
+    return a @ b
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,9 +258,11 @@ def _template_filter(cfg: ChirpConfig, n_fft: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _refine_on(cfg: ChirpConfig, device: torch.device):
-    """(kc_up, kc_dn, ke) of ``_refine_mats`` on the device."""
-    return tuple(torch.from_numpy(m).to(device) for m in _refine_mats(cfg))
+def _refine_on(cfg: ChirpConfig, device: torch.device, bf16: bool = False):
+    """(kc_up, kc_dn, ke) of ``_refine_mats`` on the device; rounded to
+    bfloat16 (as float32) for the bf16 mode."""
+    mats = tuple(torch.from_numpy(m).to(device) for m in _refine_mats(cfg))
+    return tuple(_bf16(m) for m in mats) if bf16 else mats
 
 
 # ---------------------------------------------------------------------------
@@ -242,6 +283,8 @@ def _decimate(cfg: ChirpConfig, samples: torch.Tensor) -> torch.Tensor:
     Tb = -(-T // D)
     kern = _decim_kernel(cfg, samples.device)
     kw = kern.shape[-1]
+    if _BF16:
+        samples, kern = _bf16(samples), _bf16(kern)
     xp = F.pad(samples, (0, Tb * D - T))
     xb = xp.reshape(B, Tb, D).transpose(1, 2)                # [B, D, Tb]
     out = F.conv1d(F.pad(xb, (kw // 2, kw - 1 - kw // 2)), kern)
@@ -276,9 +319,30 @@ def _corr_dense(cfg: ChirpConfig, samples: torch.Tensor, start: torch.Tensor,
     n_off = 2 * REFINE_HALF + 1
     rows = torch.arange(B, device=samples.device)[:, None]
     seg = samples.unfold(-1, W, 1)[rows, start].reshape(-1, W)   # [B*K, W]
-    num = seg @ kc                                               # [B*K, 2n]
+    num = _mxu_dot(seg, kc)                                      # [B*K, 2n]
     mag = torch.sqrt(num[:, :n_off] ** 2 + num[:, n_off:] ** 2)
-    en = (seg * seg) @ ke                                        # [B*K, n]
+    en = _mxu_dot(seg * seg, ke)                                 # [B*K, n]
+    denom = torch.sqrt(torch.clamp(en * e_t, min=0.0))
+    return torch.where(denom > 1e-10, mag / denom, 0.0)
+
+
+def _corr_bf16(cfg: ChirpConfig, samples: torch.Tensor, start: torch.Tensor,
+               kc: torch.Tensor, ke: torch.Tensor, e_t: float) -> torch.Tensor:
+    """The bf16 mode's refine (the JAX package's ``_corr_aligned``): the
+    samples rounded to bfloat16 before the gather, the squares a bfloat16
+    product rounded to bfloat16, ``kc``/``ke`` already bfloat16-valued.
+    JAX gathers 128-aligned blocks (a TPU gather-speed measure) and picks
+    each window's 2R+1 columns of a wider product; gathering each window
+    directly sums the same rounded products in every picked column."""
+    B, T = samples.shape
+    W = cfg.chirp_samples + 2 * REFINE_HALF
+    n_off = 2 * REFINE_HALF + 1
+    rows = torch.arange(B, device=samples.device)[:, None]
+    seg = samples.to(torch.bfloat16).unfold(-1, W, 1)[rows, start] \
+        .reshape(-1, W)                                          # [B*K, W]
+    num = seg.to(torch.float32) @ kc                             # [B*K, 2n]
+    mag = torch.sqrt(num[:, :n_off] ** 2 + num[:, n_off:] ** 2)
+    en = (seg * seg).to(torch.float32) @ ke                      # [B*K, n]
     denom = torch.sqrt(torch.clamp(en * e_t, min=0.0))
     return torch.where(denom > 1e-10, mag / denom, 0.0)
 
@@ -296,7 +360,8 @@ def _refine_full(cfg: ChirpConfig, samples: torch.Tensor, pos: torch.Tensor,
     squeeze = pos.dim() == 1
     posk = pos[:, None] if squeeze else pos
     start = torch.clamp(posk - R, 0, max(T - W, 0)).to(torch.int64)
-    corr = _corr_dense(cfg, samples, start, kc, ke, e_t)         # [B*K, 2R+1]
+    corr_fn = _corr_bf16 if _BF16 and T >= W else _corr_dense
+    corr = corr_fn(cfg, samples, start, kc, ke, e_t)             # [B*K, 2R+1]
 
     j = torch.argmax(corr, dim=-1, keepdim=True)
     c1 = corr.gather(1, j)
@@ -341,7 +406,7 @@ def detect_dual_chirp(cfg: ChirpConfig, samples: torch.Tensor,
     D = DECIM
     _, _, k_up, _, _, k_dn = _templates_dec(cfg)
     _, _, e_up, e_down = _templates(cfg)
-    kc_up, kc_dn, ke = _refine_on(cfg, dev)
+    kc_up, kc_dn, ke = _refine_on(cfg, dev, _BF16)
 
     # Coarse search on the decimated grid: one FFT of the decimated signal,
     # both templates through one batched inverse FFT.
@@ -360,6 +425,12 @@ def detect_dual_chirp(cfg: ChirpConfig, samples: torch.Tensor,
     den_dn = torch.sqrt(torch.clamp(energy * e_down, min=0.0))
     corr_up = torch.where(den_up > 1e-10, num_up / den_up, 0.0)  # [B, n_pos_d]
     corr_dn = torch.where(den_dn > 1e-10, num_dn / den_dn, 0.0)
+    if _BF16:
+        # Threshold-margin quantities only: the selection below (masks,
+        # maxima, comparisons with Python floats, which torch rounds to the
+        # tensor's dtype as JAX does) runs in bfloat16.
+        corr_up = corr_up.to(torch.bfloat16)
+        corr_dn = corr_dn.to(torch.bfloat16)
 
     pos_d = torch.arange(n_pos_d, device=dev)
     # The reference searches pos < T - L (exclusive of the last).
@@ -397,7 +468,10 @@ def detect_dual_chirp(cfg: ChirpConfig, samples: torch.Tensor,
     # noise spike).  A wins when it fully validates.
     gmax = cu.amax(-1)
     strong_a = cu >= thr_grid
-    strong_b = cu >= torch.clamp(0.7 * gmax[:, None], min=thr_grid)
+    # 0.7 in cu's dtype: torch multiplies by an unrounded Python float,
+    # JAX by the constant rounded to the array's dtype.
+    rel_b = float(torch.tensor(0.7, dtype=cu.dtype))
+    strong_b = cu >= torch.clamp(rel_b * gmax[:, None], min=thr_grid)
     upd2 = torch.stack([up_candidate(strong_a), up_candidate(strong_b)], 1)
     up_pos2, up_corr2 = _refine_full(cfg, samples, upd2 * D, kc_up, ke, e_up)
     any2 = torch.stack([strong_a.any(-1), strong_b.any(-1)], 1)

@@ -13,6 +13,14 @@ that iterate, max_iters {0, 1, 2, 50}, trap_escape, a misaligned view,
 and the whole frame pipeline on the card against the same pipeline on
 the CPU.
 
+The bf16-message instantiation of the LDPC kernel against the plain
+decoder with ``msg_dtype=torch.bfloat16``: bits, ok flags, iteration
+counts and total LLRs equal on every lane at every rate, across the
+block-size rule, at max_iters {0, 1, 2}, with trap_escape, and on the
+lanes where bf16 messages change a lane's outcome; each launch counted by
+``cuda_ldpc.launches_bf16`` and none by the float32 counter, also when a
+decode takes bf16 from the module default.
+
 Schmidl-Cox windows: P, R1 and R2 within rtol 2e-4, atol 2e-3 (the
 tolerance of tests/test_pallas_sync.py; the kernel sums in another order)
 at strides 1, 2 and 8, G below one tile and ragged last tiles, odd B, odd offsets, lda > T and odd contiguous rows, and detection
@@ -186,6 +194,62 @@ def test_kernel_trap_escape_equals_plain_at_width(dev, B):
     _assert_kernel_equals_plain(CodeRate.R1_4,
                                 _noisy_llr(CodeRate.R1_4, 1.1, B), dev,
                                 trap_escape=True)
+
+
+def _assert_bf16_kernel_equals_plain(rate, llr, dev, **kw):
+    graph = T.graph_for(ldpc.get_code(rate), dev)
+    x = torch.from_numpy(llr).to(dev)
+    before, before32 = cuda_ldpc.launches_bf16, cuda_ldpc.launches
+    got = cuda_ldpc.decode_cuda(graph, x, msg_dtype=torch.bfloat16, **kw)
+    assert cuda_ldpc.launches_bf16 > before
+    assert cuda_ldpc.launches == before32
+    want = T.decode_plain(graph, x, msg_dtype=torch.bfloat16, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    return got
+
+
+@pytest.mark.parametrize("rate", list(NAMES))
+@pytest.mark.parametrize("B", [3, 513, 4096])
+def test_bf16_kernel_equals_plain(dev, rate, B):
+    _assert_bf16_kernel_equals_plain(rate, _noisy_llr(rate, SIGMA[rate], B),
+                                     dev)
+
+
+@pytest.mark.parametrize("max_iters", [0, 1, 2])
+def test_bf16_kernel_equals_plain_at_few_iterations(dev, max_iters):
+    _assert_bf16_kernel_equals_plain(CodeRate.R1_2,
+                                     _noisy_llr(CodeRate.R1_2, 0.62, 256),
+                                     dev, max_iters=max_iters)
+
+
+@pytest.mark.parametrize("rate", [CodeRate.R1_2, CodeRate.R1_4])
+def test_bf16_kernel_trap_escape_equals_plain(dev, rate):
+    _assert_bf16_kernel_equals_plain(rate, _noisy_llr(rate, SIGMA[rate], 513),
+                                     dev, trap_escape=True)
+
+
+def test_bf16_kernel_where_bf16_changes_the_outcome(dev):
+    """A waterfall batch on which bf16 and float32 messages end some lanes
+    differently: the kernel follows the bf16 decoder there."""
+    llr = _noisy_llr(CodeRate.R1_2, 0.72, 4096)
+    graph = T.graph_for(ldpc.get_code(CodeRate.R1_2), torch.device("cpu"))
+    f32 = T.decode_plain(graph, torch.from_numpy(llr))
+    _, ok, iters = _assert_bf16_kernel_equals_plain(CodeRate.R1_2, llr, dev)
+    assert not torch.equal(iters.cpu(), f32[2])
+
+
+def test_bf16_default_decode_goes_through_the_bf16_kernel(dev):
+    code = ldpc.get_code(CodeRate.R1_2)
+    x = torch.from_numpy(_noisy_llr(CodeRate.R1_2, 0.62, 64)).to(dev)
+    before, before32 = cuda_ldpc.launches_bf16, cuda_ldpc.launches
+    with T.default_msg_dtype(torch.bfloat16):
+        got = T.decode(code, x)
+    assert cuda_ldpc.launches_bf16 == before + 1
+    assert cuda_ldpc.launches == before32
+    want = T.decode(code, x.cpu(), msg_dtype=torch.bfloat16)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
 
 
 def test_kernel_takes_a_misaligned_view(dev):

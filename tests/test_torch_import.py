@@ -146,26 +146,32 @@ def test_no_jax_import_in_port_sources():
             assert not _forbidden(name), (path, name)
 
 
-TOOLS = [ROOT / "tools" / "torch_dcn_sweep.py",
-         ROOT / "tools" / "torch_regression_matrix.py"]
+TOOLS = [ROOT / "tools" / f"torch_{name}.py"
+         for name in ("dcn_sweep", "regression_matrix", "ber_curves",
+                      "profile_acquisition", "cli_simulator",
+                      "test_hf_reality", "threaded_simulator",
+                      "test_iwaveform")]
 
 
 def test_port_tools_import_only_the_port():
     """The port's tools name no jax and nothing of the JAX package, and
     loading them with the port modules they import leaves both out of
     ``sys.modules``."""
+    imported = set()
     for path in TOOLS:
         names = set(_imported_modules(path))
-        assert "projectultra_tpu_torch.parallel" in names \
-            or "projectultra_tpu_torch.parallel.sweep" in names, path
+        assert any(n.startswith("projectultra_tpu_torch.") for n in names), \
+            path
         for name in names:
             assert not _forbidden(name), (path, name)
-    code = ("import runpy, sys\n"
+        imported |= {n for n in names
+                     if n.startswith("projectultra_tpu_torch.")}
+    modules = sorted(n for n in imported if n in set(_port_modules()))
+    code = ("import importlib, runpy, sys\n"
             f"for path in {[str(p) for p in TOOLS]!r}:\n"
             "    runpy.run_path(path, run_name='tool')\n"
-            "import projectultra_tpu_torch.parallel.sweep\n"
-            "import projectultra_tpu_torch.parallel.dcn\n"
-            "import projectultra_tpu_torch.parallel.mesh\n"
+            f"for name in {modules!r}:\n"
+            "    importlib.import_module(name)\n"
             f"bad = sorted(k for k in sys.modules if any(k == t or "
             f"k.startswith(t + '.') for t in {FORBIDDEN!r}))\n"
             "print('FORBIDDEN_MODULES', bad)\n"
