@@ -57,7 +57,15 @@ checks them:
   ``ops.ldpc.default_msg_dtype(torch.bfloat16)`` and
   ``sync.chirp.bf16_mode()`` on, and the ``main`` of
   ``tools/torch_{ber_curves,test_hf_reality,cli_simulator,
-  threaded_simulator,test_iwaveform,profile_acquisition}.py``.
+  threaded_simulator,test_iwaveform,profile_acquisition}.py``;
+* slice 10, the measurement tools -- the ``main`` of
+  ``tools/torch_{test_throughput,test_mode_snr,test_dpsk_snr,
+  test_otfs_vs_ofdm,test_sync_robustness,test_sro,test_cfo_ramp,
+  test_interferer_onset,test_session_throughput,
+  test_calibrated_negotiation,calibrate_mode_table,calibrate_snr}.py``:
+  frame-level sweeps at their default sizes, the streaming-engine
+  harnesses (clock skew, Doppler ramp, interferer onset) and two-station
+  sessions at cut sizes (``MEASUREMENT_TOOLS``).
 
 Phases:
 
@@ -192,7 +200,19 @@ Phases:
     ``test_hf_reality --quick`` (all five gates), ``cli_simulator``,
     ``threaded_simulator``, ``test_iwaveform --frames 5`` batched and
     ``--stream`` (every frame decoded), ``profile_acquisition --seconds
-    2`` (the 1.2 s dual chirp needs more than 1 s) in float32 and bf16.
+    2`` (the 1.2 s dual chirp needs more than 1 s) in float32 and bf16;
+    then slice 10's measurement tools (``measurement_tools``), each
+    timed: ``test_throughput`` (15 rows, 8 codewords; each row held to the
+    JAX tool's table), ``test_mode_snr``, ``test_dpsk_snr``,
+    ``test_otfs_vs_ofdm`` and ``test_sync_robustness`` (ALL PASS) at their
+    default trials, ``test_sro --quick --frames 1`` (the clock-skew retry
+    fired at +100 ppm), ``test_cfo_ramp`` on the Cox DQPSK and MC-DPSK
+    rows at three frames, ``test_interferer_onset --sir 5``,
+    ``test_session_throughput`` on the 512-plan 26 dB row,
+    ``test_calibrated_negotiation`` on three points (AWGN and fading
+    20 dB, the 26 dB climb) and both ``calibrate_*`` tools at one trial;
+    each exits 0 (its own gate), launching the LDPC kernel, and the
+    window kernel where it searches for a Schmidl-Cox preamble.
 
 Beside the timings, every kernel is timed at each shape its paths give it
 (LDPC: R1/2 17 dB B = 16,384, the R1/2 sigma 0.62 waterfall batch of
@@ -2958,7 +2978,69 @@ def phase_tools(dev: torch.device, card: str) -> None:
         res, _ = run_tool("torch_profile_acquisition",
                           ["--seconds", "2", *extra])
         require(res["found"] == 1.0, f"profile_acquisition {extra}: {res}")
+    measurement_tools()
     print(f"phase_tools: {time.perf_counter() - t0!r} s", flush=True)
+
+
+# tools/test_throughput.py --cpu (8 codewords, the JAX package's noise):
+# every row decodes 1.0 but the Good-channel row, 47 of 64 codewords.
+JAX_THROUGHPUT = {11: 47 / 64}
+THROUGHPUT_FRAME = 8 / 64   # one frame's worth of the Good row's codewords
+# (tool, argv, runs a Schmidl-Cox search): each tool's size on the card.
+MEASUREMENT_TOOLS = [
+    ("torch_test_throughput", [], True),
+    ("torch_test_mode_snr", [], False),
+    ("torch_test_dpsk_snr", [], False),
+    ("torch_test_otfs_vs_ofdm", [], False),
+    ("torch_test_sync_robustness", [], True),
+    ("torch_test_sro", ["--quick", "--frames", "1"], True),
+    # Three frames (the tool's default): at one frame the JAX tool too
+    # misses the Cox row's -0.1 Hz/s cell, so its gate fails at that size.
+    ("torch_test_cfo_ramp", ["--rows", "cox_dqpsk,mc_dpsk"], True),
+    ("torch_test_interferer_onset", ["--sir", "5"], True),
+    ("torch_test_session_throughput", ["--rows", "512_26"], True),
+    ("torch_test_calibrated_negotiation", ["--points", "4,9,10"], True),
+    ("torch_calibrate_mode_table", ["--trials", "1"], True),
+    ("torch_calibrate_snr", ["--trials", "1"], True),
+]
+
+
+def throughput_gate(rows: list) -> None:
+    """Each row against JAX's table: 1.0 where JAX decodes 1.0, else JAX's
+    rate less one frame's worth of codewords."""
+    for r in rows:
+        want = JAX_THROUGHPUT.get(r["index"], 1.0)
+        floor = want if want == 1.0 else want - THROUGHPUT_FRAME
+        require(r["decode"] >= floor,
+                f"test_throughput {r['label']}: decode {r['decode']} < "
+                f"{floor} (JAX {want})")
+
+
+def measurement_tools() -> None:
+    """The measurement tools on the card (``MEASUREMENT_TOOLS``): each
+    exits 0, which holds its own gate where it has one (SRO, CFO ramp,
+    sync robustness ALL PASS, onset, session RESULT: PASS, negotiation
+    PASS); the LDPC kernel launches in every run and the window kernel in
+    every run with a Schmidl-Cox search; the throughput rows against
+    JAX's table; the clock-skew retry fires on the 512-plan QAM16 row at
+    +100 ppm."""
+    walls = {}
+    for name, argv, cox in MEASUREMENT_TOOLS:
+        t0 = time.perf_counter()
+        res, launches = run_tool(name, argv)
+        walls[name] = time.perf_counter() - t0
+        require(launches["ldpc_minsum"] > 0, f"{name}: no LDPC launch")
+        require(not cox or launches["sc_windows"] > 0,
+                f"{name}: no window-kernel launch")
+        if name == "torch_test_throughput":
+            throughput_gate(res["rows"])
+        if name == "torch_test_sro":
+            retried = res["rows"]["cox_qam16"]["retried"]["100"]
+            print(f"test_sro cox_qam16 +100 ppm: frames_sro_retried "
+                  f"{retried}", flush=True)
+            require(retried > 0, "test_sro: no clock-skew retry at +100 ppm")
+    for name, wall in walls.items():
+        print(f"measurement tool {name}: {wall!r} s", flush=True)
 
 
 def main() -> None:

@@ -10,6 +10,15 @@ would call ``poll`` from its audio callback cadence).  All hot math — chirp
 matched filters, waveform demodulation, LDPC — runs as batched JAX programs
 on the device.
 
+The engine is single-threaded unless the caller locks: its lock guards
+only the RX buffer's swap, while ``poll`` also updates state that
+``feed_audio`` reads (the exciser hints of ``_excision_rx_hints``, among
+others).  With ``feed_audio`` on one thread and ``poll`` on another and no
+lock of the caller's, frames are lost -- the JAX package's engine loses
+them the same way (``tools/threaded_simulator.py --cpu --direct-threads``
+on the CPU).  A threaded caller holds one lock around every call into the
+engine, as ``tools/torch_threaded_simulator.py`` does.
+
 The port of the JAX package's engine: ``ModemEngine(device=...)`` holds
 the device every device step of a poll runs on (the first CUDA device
 when none is given; raises without one).  On a CUDA device the Cox

@@ -224,6 +224,15 @@ def watterson(samples: torch.Tensor, cfg: ChannelConfig,
     return watterson_with(samples, cfg, fade, noise)
 
 
+def seeded_generator(device, *ints: int) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded from a sequence of
+    integers (numpy's ``SeedSequence`` hashes them into one seed): the
+    harness's stand-in for ``jax.random.fold_in(PRNGKey(a), b)``, one
+    independent stream per (a, b, ...)."""
+    seed = int(np.random.SeedSequence(list(ints)).generate_state(1)[0])
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 # ---------------------------------------------------------------------------
 # Harness AWGN and CFO
 # ---------------------------------------------------------------------------

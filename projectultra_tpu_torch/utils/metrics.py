@@ -1,14 +1,16 @@
-"""Modem/link statistics and the device trace helper.
+"""Modem/link statistics, the stage timer and the device trace helper.
 
-Reference: include/ultra/types.hpp:248-260 (ModemStats).  The port's copy
-of the JAX package's ``ModemStats`` (pinned field for field by
-``tests/test_torch_host.py``); its device trace uses ``torch.profiler``.
+Reference: include/ultra/types.hpp:248-260 (ModemStats).  The port's copies
+of the JAX package's ``ModemStats``, ``BatchMetrics`` and ``stage_timer``
+(pinned field for field and by behaviour by ``tests/test_torch_host.py``);
+its device trace uses ``torch.profiler``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 
 from ..config import Modulation, CodeRate
 
@@ -45,6 +47,40 @@ class ModemStats:
     frames_delayfit_retried: int = 0
     current_modulation: Modulation = Modulation.QPSK
     current_code_rate: CodeRate = CodeRate.R1_2
+
+
+@dataclasses.dataclass
+class BatchMetrics:
+    """Per-batch device pipeline metrics (the rebuild's replacement for the
+    per-decode callbacks)."""
+    frames: int = 0
+    decoded: int = 0
+    bit_errors: int = 0
+    total_bits: int = 0
+    ldpc_iterations_mean: float = 0.0
+    snr_estimate_db: float = 0.0
+    cfo_error_hz: float = 0.0
+    pipelines_per_sec: float = 0.0
+
+    @property
+    def fer(self) -> float:
+        return 1.0 - self.decoded / self.frames if self.frames else 0.0
+
+    @property
+    def ber(self) -> float:
+        return self.bit_errors / self.total_bits if self.total_bits else 0.0
+
+
+@contextlib.contextmanager
+def stage_timer(name: str, results: dict | None = None):
+    """Per-stage wall-clock timer (profile_acquisition.cpp equivalent): adds
+    the seconds spent in the block to ``results[name]``.  Host clock only;
+    a caller timing device work synchronises inside the block."""
+    t0 = time.perf_counter()
+    yield
+    dt = time.perf_counter() - t0
+    if results is not None:
+        results[name] = results.get(name, 0.0) + dt
 
 
 @contextlib.contextmanager

@@ -233,6 +233,36 @@ def test_modem_stats_match():
     assert type(ours.current_modulation) is TC.Modulation
 
 
+@pytest.mark.parametrize("kw", [
+    {}, dict(frames=10, decoded=9, bit_errors=5, total_bits=6480),
+    dict(frames=7, decoded=7, ldpc_iterations_mean=1.5, snr_estimate_db=3.2,
+         cfo_error_hz=-0.25, pipelines_per_sec=1e4)])
+def test_batch_metrics_match(kw):
+    ours, ref = TME.BatchMetrics(**kw), JME.BatchMetrics(**kw)
+    assert [(f.name, f.type, f.default) for f in dataclasses.fields(ours)] \
+        == [(f.name, f.type, f.default) for f in dataclasses.fields(ref)]
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert (ours.fer, ours.ber) == (ref.fer, ref.ber)
+
+
+@pytest.mark.parametrize("results", [None, {}, {"demod": 0.5, "sync": 1.0}])
+def test_stage_timer_matches(results, monkeypatch):
+    """Both timers add the block's perf_counter span to results[name] (and
+    leave other stages alone); None results are ignored."""
+    import time as _time
+    ticks = iter([10.0, 10.25, 20.0, 20.25])
+    monkeypatch.setattr(_time, "perf_counter", lambda: next(ticks))
+    got = {}
+    for name, mod in (("port", TME), ("jax", JME)):
+        res = None if results is None else dict(results)
+        with mod.stage_timer("demod", res):
+            pass
+        got[name] = res
+    assert got["port"] == got["jax"]
+    if results is not None:
+        assert got["port"]["demod"] == results.get("demod", 0.0) + 0.25
+
+
 def test_device_trace_writes_a_trace(tmp_path):
     import torch as _torch
     with TME.device_trace(str(tmp_path)) as prof:

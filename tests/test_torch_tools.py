@@ -143,3 +143,35 @@ def test_hf_reality_five_gates():
     assert agc_ok, "AGC pumping: frames lost, false decodes, or a " \
                    "mitigation engaged on the gain wobble"
 
+
+
+# The measurement tools (slice 10) at tiny sizes; the tests/test_torch_
+# tools_{sro,onset,batch,snr,session,calibrate}.py files hold them to the
+# JAX tools on JAX's noise.
+@pytest.mark.parametrize("name,argv,keys", [
+    ("torch_test_sro", ["--rows", "cox_dqpsk", "--ppm", "0", "--frames", "1"],
+     {"gate", "rows", "frames"}),
+    ("torch_test_cfo_ramp", ["--rows", "cox_dqpsk", "--rates", "0.1",
+                             "--frames", "1"], {"gate", "rows", "frames"}),
+    ("torch_test_throughput", ["--codewords", "1"], {"codewords", "rows"}),
+    ("torch_test_mode_snr", ["--trials", "1"], {"trials", "rows"}),
+    ("torch_test_dpsk_snr", ["--trials", "1"], {"trials", "rows"}),
+    ("torch_test_sync_robustness", ["--trials", "1"],
+     {"gate", "trials", "conditions"}),
+    ("torch_test_otfs_vs_ofdm", ["--trials", "1"],
+     {"snr_db", "trials", "conditions", "wins"}),
+    ("torch_test_session_throughput", ["--rows", "512_26", "--bytes", "300"],
+     {"gate", "bytes", "rows"}),
+    ("torch_test_calibrated_negotiation", ["--points", "4", "--messages", "2"],
+     {"gate", "calibrated", "points"}),
+    ("torch_test_interferer_onset", ["--sir", "5", "--msgs", "4"],
+     {"gate", "trials"}),
+    ("torch_calibrate_mode_table", ["--trials", "1", "--only",
+                                    "OFDM_COX DQPSK R1_2"], {"trials", "rows"}),
+    ("torch_calibrate_snr", ["--trials", "1"], {"trials", "pairs"}),
+])
+def test_measurement_tool_main(name, argv, keys, capsys):
+    res = _run(name, argv, capsys)
+    assert keys | {"wall_seconds", "device"} <= res.keys()
+    if "gate" in res:
+        assert res["gate"] is True

@@ -50,21 +50,15 @@ def tx_ramp(audio, n=1200):
     return out
 
 
-def apply_sro(audio, ppm):
-    """Resample by (1 + ppm*1e-6) with Catmull-Rom cubic interpolation at
-    t_n = n * (1 + eps) (tools/test_sro.py's clock skew)."""
-    import numpy as np
-    eps = ppm * 1e-6
-    n_out = int(len(audio) / (1.0 + eps)) - 4
-    t = np.arange(n_out, dtype=np.float64) * (1.0 + eps)
-    i = np.floor(t).astype(np.int64)
-    f = (t - i).astype(np.float64)
-    x = np.pad(audio.astype(np.float64), (1, 3))
-    xm1, x0, x1, x2 = x[i], x[i + 1], x[i + 2], x[i + 3]
-    a = -0.5 * xm1 + 1.5 * x0 - 1.5 * x1 + 0.5 * x2
-    b = xm1 - 2.5 * x0 + 2.0 * x1 - 0.5 * x2
-    c = -0.5 * xm1 + 0.5 * x1
-    return (((a * f + b) * f + c) * f + x0).astype(np.float32)
+def _sro_tool():
+    """tools/torch_test_sro.py, loaded by path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_sro_tool", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "torch_test_sro.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _engine(device, waveform="OFDM_COX"):
@@ -149,9 +143,9 @@ def run(snr_db=25.0, num_frames=12, duration_sec=60.0, soak_minutes=10.0,
         t += len(audio) / 48000.0 + avg_gap * float(rng.uniform(0.7, 1.3))
 
     if sro_ppm:
-        # The RX clock's skew applies before the noise (the receiver's ADC
-        # samples channel noise at its own clock).
-        stream = apply_sro(stream, sro_ppm)
+        # The RX clock's skew (torch_test_sro.apply_sro) applies before the
+        # noise (the receiver's ADC samples channel noise at its own clock).
+        stream = _sro_tool().apply_sro(stream, sro_ppm)
 
     sig_power = float(np.mean(np.concatenate(placed) ** 2))
     noise_std = float(np.sqrt(sig_power / 10 ** (snr_db / 10.0)))
