@@ -65,7 +65,11 @@ checks them:
   test_calibrated_negotiation,calibrate_mode_table,calibrate_snr}.py``:
   frame-level sweeps at their default sizes, the streaming-engine
   harnesses (clock skew, Doppler ramp, interferer onset) and two-station
-  sessions at cut sizes (``MEASUREMENT_TOOLS``).
+  sessions at cut sizes (``MEASUREMENT_TOOLS``);
+* slice 11, the front-ends and the parity overlay -- the ``main`` of
+  ``tools/torch_{tui,webui,parity_curves}.py``: the tui's ``--sim``
+  session, the web console's scripted HTTP session and the overlay
+  against the reference's counts at a cut (``PARITY_CUT``).
 
 Phases:
 
@@ -205,14 +209,25 @@ Phases:
     timed: ``test_throughput`` (15 rows, 8 codewords; each row held to the
     JAX tool's table), ``test_mode_snr``, ``test_dpsk_snr``,
     ``test_otfs_vs_ofdm`` and ``test_sync_robustness`` (ALL PASS) at their
-    default trials, ``test_sro --quick --frames 1`` (the clock-skew retry
-    fired at +100 ppm), ``test_cfo_ramp`` on the Cox DQPSK and MC-DPSK
+    default trials, ``test_sro --quick --frames 1`` at 0 and +-100 ppm
+    (the clock-skew retry fired at +100 ppm), ``test_cfo_ramp`` on the
+    Cox DQPSK and MC-DPSK
     rows at three frames, ``test_interferer_onset --sir 5``,
     ``test_session_throughput`` on the 512-plan 26 dB row,
     ``test_calibrated_negotiation`` on three points (AWGN and fading
-    20 dB, the 26 dB climb) and both ``calibrate_*`` tools at one trial;
+    20 dB, the 26 dB climb), ``calibrate_mode_table`` on its three
+    OFDM_COX DQPSK rows and ``calibrate_snr``, both at one trial;
     each exits 0 (its own gate), launching the LDPC kernel, and the
-    window kernel where it searches for a Schmidl-Cox preamble.
+    window kernel where it searches for a Schmidl-Cox preamble; the five
+    frame-level tools' kernel launches are recorded and both kernels
+    timed against their bounds on each tool's smallest and largest
+    batch;
+20. ``phase_frontends``: ``tui --sim`` (RESULT: PASS, the LDPC kernel
+    launched), ``webui --script --port 0`` (PASS, both kernels launched)
+    and ``parity_curves --points 5,19,20,21,22`` (MC-DPSK 15 dB poor,
+    OFDM_CHIRP 15 dB poor and the three OFDM_COX points over seeds 42-44:
+    ours >= the reference's count at every point, the Cox points >= 80%),
+    each timed with its kernel launches.
 
 Beside the timings, every kernel is timed at each shape its paths give it
 (LDPC: R1/2 17 dB B = 16,384, the R1/2 sigma 0.62 waterfall batch of
@@ -238,6 +253,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import importlib.util
+import inspect
 import io
 import json
 import subprocess
@@ -2978,7 +2994,7 @@ def phase_tools(dev: torch.device, card: str) -> None:
         res, _ = run_tool("torch_profile_acquisition",
                           ["--seconds", "2", *extra])
         require(res["found"] == 1.0, f"profile_acquisition {extra}: {res}")
-    measurement_tools()
+    measurement_tools(card)
     print(f"phase_tools: {time.perf_counter() - t0!r} s", flush=True)
 
 
@@ -2986,21 +3002,28 @@ def phase_tools(dev: torch.device, card: str) -> None:
 # every row decodes 1.0 but the Good-channel row, 47 of 64 codewords.
 JAX_THROUGHPUT = {11: 47 / 64}
 THROUGHPUT_FRAME = 8 / 64   # one frame's worth of the Good row's codewords
-# (tool, argv, runs a Schmidl-Cox search): each tool's size on the card.
+# (tool, argv, runs a Schmidl-Cox search): each tool's size on the card;
+# the first FRAME_LEVEL_TOOLS decode whole batches of frames.
+FRAME_LEVEL_TOOLS = 5
 MEASUREMENT_TOOLS = [
     ("torch_test_throughput", [], True),
     ("torch_test_mode_snr", [], False),
     ("torch_test_dpsk_snr", [], False),
     ("torch_test_otfs_vs_ofdm", [], False),
     ("torch_test_sync_robustness", [], True),
-    ("torch_test_sro", ["--quick", "--frames", "1"], True),
+    # Three rows at one frame and three of the seven skews (+100 ppm
+    # fires the clock-skew retry), cut for the script's time limit.
+    ("torch_test_sro", ["--quick", "--frames", "1", "--ppm", "0,100,-100"],
+     True),
     # Three frames (the tool's default): at one frame the JAX tool too
     # misses the Cox row's -0.1 Hz/s cell, so its gate fails at that size.
     ("torch_test_cfo_ramp", ["--rows", "cox_dqpsk,mc_dpsk"], True),
     ("torch_test_interferer_onset", ["--sir", "5"], True),
     ("torch_test_session_throughput", ["--rows", "512_26"], True),
     ("torch_test_calibrated_negotiation", ["--points", "4,9,10"], True),
-    ("torch_calibrate_mode_table", ["--trials", "1"], True),
+    # The three OFDM_COX DQPSK rows of the table's eleven, one trial.
+    ("torch_calibrate_mode_table", ["--trials", "1", "--only",
+                                    "OFDM_COX DQPSK"], True),
     ("torch_calibrate_snr", ["--trials", "1"], True),
 ]
 
@@ -3016,18 +3039,93 @@ def throughput_gate(rows: list) -> None:
                 f"{floor} (JAX {want})")
 
 
-def measurement_tools() -> None:
+class KernelCalls:
+    """The arguments of every kernel launch made through the two wrappers
+    (``cuda_ldpc.decode_cuda``, ``cuda_sc.sc_windows_cuda``) while
+    ``recording`` is active, by name: ``ldpc`` and ``sc``."""
+
+    def __init__(self):
+        self.ldpc: list = []
+        self.sc: list = []
+
+    @contextlib.contextmanager
+    def recording(self):
+        def recorder(calls, fn):
+            sig = inspect.signature(fn)
+
+            def call(*args, **kw):
+                calls.append(sig.bind(*args, **kw).arguments)
+                return fn(*args, **kw)
+            return call
+
+        with mock.patch.object(cuda_ldpc, "decode_cuda",
+                               recorder(self.ldpc, cuda_ldpc.decode_cuda)), \
+                mock.patch.object(cuda_sc, "sc_windows_cuda",
+                                  recorder(self.sc, cuda_sc.sc_windows_cuda)):
+            yield self
+
+
+def extreme_batches(calls: list, tensor: str) -> list:
+    """The calls with the smallest and the largest batch (first of each);
+    none without calls."""
+    by_b = {}
+    for c in calls:
+        by_b.setdefault(c[tensor].shape[0], c)
+    return [by_b[b] for b in sorted({min(by_b), max(by_b)})] if by_b else []
+
+
+def time_recorded_shapes(tool: str, calls: KernelCalls, card: str) -> None:
+    """Both kernels on the arguments a tool's run gave them, at its
+    smallest and largest batch: device ms against the bound, as
+    ``report_shape`` prints them, and the plain version's call ms."""
+    for c in extreme_batches(calls.ldpc, "llrs"):
+        graph, llrs = c["graph"], c["llrs"]
+        trap = bool(c.get("trap_escape", False))
+        kw = {"max_iters": c.get("max_iters", DEFAULT_MAX_ITERS),
+              "trap_escape": trap, "msg_dtype": c.get("msg_dtype")}
+        _, ok, _ = cuda_ldpc.decode_cuda(graph, llrs, **kw)
+        bound_ms, by, passes = ldpc_bound(graph, ldpc_passes(
+            graph, llrs, trap_escape=trap))
+        shape = (f"{tool}, n={graph.n} k={graph.k}"
+                 f"{', trap_escape' if trap else ''}, B={llrs.shape[0]}, "
+                 f"{passes!r} iterations run per lane on average, "
+                 f"{float((~ok).float().mean())!r} of the lanes unconverged")
+        report_shape("ldpc_minsum", shape, lambda: cuda_ldpc.decode_cuda(
+            graph, llrs, **kw), 20, bound_ms, by, card)
+        plain = time_ms(lambda: ldpc_ops.decode_plain(graph, llrs, **kw), 3)
+        print(f"plain decoder [{shape}]: {plain!r} ms a call on {card}",
+              flush=True)
+    for c in extreme_batches(calls.sc, "a"):
+        args = (c["a"], c["half"], c["stride"], c["offset"], c["G"])
+        a, half, stride, _, G = args
+        bound_ms, by = sc_bound(a.shape[0], half, stride, G)
+        shape = (f"{tool}, B={a.shape[0]}, T={a.shape[-1]}, half={half}, "
+                 f"stride={stride}, G={G}")
+        report_shape("sc_windows", shape,
+                     lambda: cuda_sc.sc_windows_cuda(*args), 20, bound_ms,
+                     by, card)
+        plain = time_ms(lambda: sc_windows_plain(*args), 3)
+        print(f"plain window sums [{shape}]: {plain!r} ms a call on {card}",
+              flush=True)
+
+
+def measurement_tools(card: str) -> None:
     """The measurement tools on the card (``MEASUREMENT_TOOLS``): each
     exits 0, which holds its own gate where it has one (SRO, CFO ramp,
     sync robustness ALL PASS, onset, session RESULT: PASS, negotiation
     PASS); the LDPC kernel launches in every run and the window kernel in
     every run with a Schmidl-Cox search; the throughput rows against
     JAX's table; the clock-skew retry fires on the 512-plan QAM16 row at
-    +100 ppm."""
+    +100 ppm.  The frame-level tools' (the first ``FRAME_LEVEL_TOOLS``)
+    kernel launches are recorded and both kernels timed on their
+    smallest and largest batches."""
     walls = {}
-    for name, argv, cox in MEASUREMENT_TOOLS:
+    for i, (name, argv, cox) in enumerate(MEASUREMENT_TOOLS):
         t0 = time.perf_counter()
-        res, launches = run_tool(name, argv)
+        calls = KernelCalls()
+        with (calls.recording() if i < FRAME_LEVEL_TOOLS
+              else contextlib.nullcontext()):
+            res, launches = run_tool(name, argv)
         walls[name] = time.perf_counter() - t0
         require(launches["ldpc_minsum"] > 0, f"{name}: no LDPC launch")
         require(not cox or launches["sc_windows"] > 0,
@@ -3039,8 +3137,66 @@ def measurement_tools() -> None:
             print(f"test_sro cox_qam16 +100 ppm: frames_sro_retried "
                   f"{retried}", flush=True)
             require(retried > 0, "test_sro: no clock-skew retry at +100 ppm")
+        if i < FRAME_LEVEL_TOOLS:
+            print(f"{name}: LDPC batches "
+                  f"{sorted(Counter(c['llrs'].shape[0] for c in calls.ldpc).items())}"
+                  f", window batches "
+                  f"{sorted(Counter(c['a'].shape[0] for c in calls.sc).items())}"
+                  " (batch: launches)", flush=True)
+            time_recorded_shapes(name, calls, card)
     for name, wall in walls.items():
         print(f"measurement tool {name}: {wall!r} s", flush=True)
+
+
+PARITY_CUT = [5, 19, 20, 21, 22]  # tools/torch_parity_curves.py POINTS
+PARITY_COX_FLOOR = 0.8          # tests/test_parity_curves.py's Cox rows
+
+
+def phase_frontends(dev: torch.device, card: str) -> None:
+    """The front-ends and the parity overlay on the card, each timed:
+    ``torch_tui --sim`` (RESULT: PASS, the LDPC kernel launched),
+    ``torch_webui --script --port 0`` (PASS, both kernels launched: its
+    forced OFDM_COX session searches through the window kernel) and
+    ``torch_parity_curves`` on ``PARITY_CUT`` -- the two fading points
+    where the reference loses the most frames (MC-DPSK 15 dB poor 30 Hz,
+    OFDM_CHIRP 15 dB poor) and the three OFDM_COX points, each over the
+    three seeds: ours >= ref at every point (the tool's exit 0) and the
+    Cox points at >= 80%.  The overlay's noise is seeded, so a point below
+    the reference is replayed by running the tool again on that point
+    with ``--streams DIR`` and then ``tests/replay_parity_streams.py DIR``
+    (JAX's receiver and the port's on the CPU)."""
+    t0 = time.perf_counter()
+    runs = {}
+    for name, argv in (("torch_tui", ["--sim"]),
+                       ("torch_webui", ["--script", "--port", "0"]),
+                       ("torch_parity_curves",
+                        ["--points", ",".join(map(str, PARITY_CUT))])):
+        t1 = time.perf_counter()
+        res, launches = run_tool(name, argv)
+        runs[name] = (res, launches, time.perf_counter() - t1)
+    res, launches, _ = runs["torch_tui"]
+    require(res["result"] == "PASS", "tui --sim failed")
+    require(launches["ldpc_minsum"] > 0, "tui: no LDPC launch")
+    res, launches, _ = runs["torch_webui"]
+    require(res["result"] == "PASS", "webui scripted session failed")
+    require(launches["ldpc_minsum"] > 0 and launches["sc_windows"] > 0,
+            f"webui: kernel launches {launches}")
+    res, launches, _ = runs["torch_parity_curves"]
+    require(res["all_points_at_or_above_reference"], "parity: below ref")
+    require(launches["ldpc_minsum"] > 0 and launches["sc_windows"] > 0,
+            f"parity: kernel launches {launches}")
+    for p in res["points"]:
+        print(f"parity {p['waveform']} {p['channel']} {p['snr_db']} dB "
+              f"{p['cfo_hz']} Hz {p['rate']}: ours {p['our_decoded']}/"
+              f"{p['our_total']}, ref {p['ref_decoded']}/{p['ref_total']}, "
+              f"{p['wall_seconds']!r} s on {card}", flush=True)
+        require(p["waveform"] != "OFDM_COX" or p["our_decoded"]
+                >= PARITY_COX_FLOOR * p["our_total"],
+                f"parity: Cox point below 80%: {p}")
+    for name, (_, launches, wall) in runs.items():
+        print(f"front-end {name}: {wall!r} s, kernel launches {launches}",
+              flush=True)
+    print(f"phase_frontends: {time.perf_counter() - t0!r} s", flush=True)
 
 
 def main() -> None:
@@ -3086,6 +3242,7 @@ def main() -> None:
     phase_sweep(dev, card)
     phase_parallel(dev, card)
     phase_tools(dev, card)
+    phase_frontends(dev, card)
 
     require(not any(m == "jax" or m.startswith("jax.")
                     or m == "projectultra_tpu"

@@ -7,8 +7,9 @@ one streaming buffer.  Here the host keeps the same roles without threads:
 ``feed_audio`` appends to the RX buffer and ``poll`` runs one acquisition +
 decode pass (the CLI and tests drive it synchronously; a real-time deployment
 would call ``poll`` from its audio callback cadence).  All hot math — chirp
-matched filters, waveform demodulation, LDPC — runs as batched JAX programs
-on the device.
+matched filters, waveform demodulation, LDPC — runs as PyTorch operations
+on the engine's device, with the Schmidl-Cox window sums and the LDPC
+min-sum decode in the two hand-written CUDA kernels on a card.
 
 The engine is single-threaded unless the caller locks: its lock guards
 only the RX buffer's swap, while ``poll`` also updates state that

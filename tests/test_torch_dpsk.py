@@ -123,6 +123,73 @@ def test_tx_matches_golden_and_jax(golden_dir):
         np.testing.assert_allclose(ours, ref, rtol=0, atol=5e-4)
 
 
+# The widened tolerance of a 32 s DPSK DATA frame's TX against JAX's
+# (tests/test_torch_tools_calibrate.py): one float32 ulp of the accumulated
+# symbol phase at 8,192 rad, at the engine's 0.8 peak.
+DPSK_DATA_TX_TOL = 0.8 * 2.0 ** -10
+
+
+def _frame64(cfg, bits, pre, peak_scale, lead, tail):
+    """The engine's DPSK frame ([lead][preamble][data][tail], scaled to
+    ``peak_scale``) with the data's symbol phases accumulated and the
+    carrier evaluated in float64 from the same float32 tables."""
+    tb = TD._tables_on(cfg, torch.device("cpu"))
+    bc = cfg.bits_per_symbol
+    b = bits.numpy().astype(np.int64)[0]
+    S = -(-len(b) // bc)
+    w = (np.pad(b, (0, S * bc - len(b))).reshape(S, bc)
+         * tb.weights.numpy()).sum(-1)
+    theta = np.cumsum(tb.steps.numpy().astype(np.float64)[w])
+    data = tb.env.numpy().astype(np.float64)[None, :] * np.cos(
+        tb.phase.numpy().astype(np.float64)[None, :] + theta[:, None])
+    out = np.concatenate([np.zeros(lead), pre.astype(np.float64),
+                          data.reshape(-1), np.zeros(tail)])
+    return out * (peak_scale / np.abs(out).max()), theta[-1]
+
+
+def test_long_data_frame_tx_against_float64(monkeypatch):
+    """The 32 s DPSK DATA frame of calibrate_mode_table's DPSK floor row
+    (``medium`` DQPSK, R1/4, an 80-byte payload: 1,944 symbols, whose
+    phase reaches ~5,900 rad) from both packages' engines, held to a
+    float64 evaluation of the same phase accumulation: the port within
+    one ulp of the phase at 8,192 rad (the tolerance against JAX), no
+    further from float64 than JAX, and JAX within two."""
+    from projectultra_tpu_torch.modem import engine as TE
+    from projectultra_tpu_torch.protocol import frame_v2 as TF
+
+    from test_torch_engine import make_engine
+
+    modulated = []
+    real = TD.modulate
+
+    def recording(cfg, bits, *args):
+        modulated.append((cfg, bits))
+        return real(cfg, bits, *args)
+
+    monkeypatch.setattr(TD, "modulate", recording)
+    setup = dict(waveform="DPSK", connect_waveform="DPSK", connected=True,
+                 mod="DQPSK", rate="R1_4")
+    payload = bytes(np.random.default_rng(91000).integers(
+        0, 256, 80, dtype=np.uint8))
+    frame = TF.DataFrame.make_data("AA1AA", "BB2BB", 0, payload).serialize()
+    ours = make_engine("port", **setup).transmit(frame)
+    ref = make_engine("jax", **setup).transmit(frame)
+    (cfg, bits), = modulated
+    assert cfg == TD.medium() and len(ours) > 31.5 * 48000
+    exact, phase_end = _frame64(cfg, bits, TD.generate_preamble(cfg),
+                                TE.PEAK_SCALE, TE.LEAD_IN_SAMPLES,
+                                TE.TAIL_SAMPLES)
+    assert 4096 < phase_end < 8192
+    d_port = float(np.abs(ours - exact).max())
+    d_jax = float(np.abs(ref - exact).max())
+    print(f"32 s DPSK frame, distance from float64: port {d_port!r}, JAX "
+          f"{d_jax!r}, port to JAX {float(np.abs(ours - ref).max())!r}")
+    assert d_port <= DPSK_DATA_TX_TOL, d_port
+    assert d_port <= d_jax, (d_port, d_jax)
+    assert d_jax <= 2 * DPSK_DATA_TX_TOL, d_jax
+    assert float(np.abs(ours - ref).max()) <= DPSK_DATA_TX_TOL
+
+
 def test_find_preamble_and_soft_match_golden(golden_dir):
     """The reference's own TX in silence (tests/test_dpsk.py:59-76)."""
     payload, meta = _meta(golden_dir)

@@ -8,6 +8,7 @@ either in an import.  The host modules the port needs are its own copies
 """
 
 import ast
+import importlib.util
 import pathlib
 import subprocess
 import sys
@@ -156,7 +157,32 @@ TOOLS = [ROOT / "tools" / f"torch_{name}.py"
                       "test_sync_robustness", "test_otfs_vs_ofdm",
                       "test_session_throughput",
                       "test_calibrated_negotiation", "calibrate_mode_table",
-                      "calibrate_snr")]
+                      "calibrate_snr", "tui", "webui", "parity_curves")]
+
+# JAX tools without a tools/torch_<name>.py twin, each with its reason.
+# (tools/ref_oracle/ regenerates reference fixtures from the C++ reference,
+# which is not part of the repo; it is not a tools/*.py module.)
+UNTWINNED_TOOLS: set = set()
+
+
+def test_every_jax_tool_has_a_twin():
+    """Every tools/*.py of the JAX package has a tools/torch_<name>.py
+    twin, except the listed ones."""
+    jax_tools = {p.stem for p in (ROOT / "tools").glob("*.py")
+                 if not p.stem.startswith("torch_")}
+    assert "parity_curves" in jax_tools and "webui" in jax_tools
+    missing = {name for name in jax_tools
+               if not (ROOT / "tools" / f"torch_{name}.py").exists()}
+    assert missing == UNTWINNED_TOOLS
+    assert {p.stem for p in TOOLS} == {f"torch_{n}" for n in jax_tools}
+
+
+def _tool(name):
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def test_port_tools_import_only_the_port():
@@ -214,11 +240,12 @@ def test_require_cuda_raises_without_a_card(monkeypatch):
                                    "waveform.create", "cli.main",
                                    "sweep.run_point", "sweep.run_point_stream",
                                    "dcn.acq_sweep_counts", "dryrun.entry",
-                                   "dryrun.dryrun_multichip"])
+                                   "dryrun.dryrun_multichip", "tui.main",
+                                   "webui.main", "parity_curves.main"])
 def test_entry_points_take_the_card(entry, monkeypatch, tmp_path):
     """Without a device each entry point of the protocol and parallel
-    slices asks for the first CUDA device, so it raises where there is
-    none."""
+    slices, and each front-end tool without ``--cpu``, asks for the first
+    CUDA device, so it raises where there is none."""
     from projectultra_tpu_torch import cli
     from projectultra_tpu_torch.modem.rx_pipeline import RxPipeline
     from projectultra_tpu_torch.parallel import dcn, dryrun, sweep
@@ -236,7 +263,12 @@ def test_entry_points_take_the_card(entry, monkeypatch, tmp_path):
             "dcn.acq_sweep_counts": lambda: dcn.acq_sweep_counts(2),
             "dryrun.entry": dryrun.entry,
             "dryrun.dryrun_multichip":
-                lambda: dryrun.dryrun_multichip(2)}[entry]
+                lambda: dryrun.dryrun_multichip(2),
+            "tui.main": lambda: _tool("torch_tui").main(["--sim"]),
+            "webui.main": lambda: _tool("torch_webui").main(
+                ["--script", "--port", "0"]),
+            "parity_curves.main": lambda: _tool("torch_parity_curves").main(
+                ["--points", "20"])}[entry]
     with pytest.raises(RuntimeError):
         call()
 
