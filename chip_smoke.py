@@ -69,7 +69,10 @@ checks them:
 * slice 11, the front-ends and the parity overlay -- the ``main`` of
   ``tools/torch_{tui,webui,parity_curves}.py``: the tui's ``--sim``
   session, the web console's scripted HTTP session and the overlay
-  against the reference's counts at a cut (``PARITY_CUT``).
+  against the reference's counts at a cut (``PARITY_CUT``);
+* slice 12, the port's bench -- ``bench_torch.py``, bench.py's twin: its
+  three workloads (presynced pipelines/s, chirp and Schmidl-Cox
+  acquisition frames/s) at bench.py's sizes with both bf16 modes on.
 
 Phases:
 
@@ -227,14 +230,23 @@ Phases:
     and ``parity_curves --points 5,19,20,21,22`` (MC-DPSK 15 dB poor,
     OFDM_CHIRP 15 dB poor and the three OFDM_COX points over seeds 42-44:
     ours >= the reference's count at every point, the Cox points >= 80%),
-    each timed with its kernel launches.
+    each timed with its kernel launches;
+21. ``phase_bench``: ``python3 bench_torch.py`` as a fresh process (exit
+    0; bench.py's keys, three values > 0, both acquisition ok rates >=
+    0.99, no main-path failure), then one step of each of its workloads
+    in this process with its fast modes on: the bf16 LDPC kernel launched
+    in all three and the float32 one in none, the window kernel in the
+    Schmidl-Cox step, the bench's gate on each; the bf16 kernel
+    lane-exact with the plain bf16 decoder and timed at the chirp and
+    Schmidl-Cox buffers.
 
 Beside the timings, every kernel is timed at each shape its paths give it
 (LDPC: R1/2 17 dB B = 16,384, the R1/2 sigma 0.62 waterfall batch of
 16,384 with its mean iterations, a Cox buffer B = 512, the chirp cell's
 R1/4 B = 256, slice 5's R3/4, R5/6 and -11 dB R1/4 LLRs; window sums:
 strides 8 and 1 on a Cox buffer, stride 8 at half = 512; the engine's
-B = 1 shapes) and printed
+B = 1 shapes; the bf16 instantiation at the bench's chirp and Cox
+buffers) and printed
 with its bound -- the larger of its bytes over 3.35 TB/s and its float32
 operations over 67 TFLOP/s, counted on the run's own data -- the bound's
 basis and the share of the bound the kernel reaches.  There a kernel's
@@ -256,6 +268,7 @@ import importlib.util
 import inspect
 import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -270,6 +283,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+import bench_torch as BT
 from projectultra_tpu_torch import (CodeRate, ModemConfig, Modulation,
                                     get_code, require_cuda)
 from projectultra_tpu_torch.config import high_throughput, nvis_mode
@@ -3199,6 +3213,112 @@ def phase_frontends(dev: torch.device, card: str) -> None:
     print(f"phase_frontends: {time.perf_counter() - t0!r} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Slice 12: the port's bench
+# ---------------------------------------------------------------------------
+
+BENCH_TIMEOUT_S = 600
+# The keys of bench.py's line when every gate passes (BENCH_r05.json).
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "acq_metric",
+              "acq_value", "acq_unit", "acq_decode_ok_rate", "cox_metric",
+              "cox_value", "cox_unit", "cox_decode_ok_rate"}
+
+
+def run_bench() -> dict:
+    """``python3 bench_torch.py`` as a fresh process with the fast modes
+    at bench.py's default (neither switch set), its output printed;
+    requires exit 0 and returns its last line."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in BT.FAST_MODES}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "bench_torch.py")],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT_S)
+    print(f"--- python3 bench_torch.py: exit {proc.returncode}, "
+          f"{time.perf_counter() - t0!r} s\n{proc.stdout.strip()}",
+          flush=True)
+    require(proc.returncode == 0,
+            f"bench_torch.py exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def bench_bf16_shape(label: str, rate: CodeRate, llrs: torch.Tensor,
+                     card: str) -> None:
+    """The bf16 kernel on a bench workload's own LLRs: lane-exact against
+    the plain bf16 decoder, both timed (calls), and its device time beside
+    its bound."""
+    compare_decoders(rate, llrs, f"{label} LLRs", msg_dtype=BF16)
+    graph = ldpc_ops.graph_for(get_code(rate), llrs.device)
+    k_ms, p_ms = time_decoders(graph, llrs, kernel_reps=20, plain_reps=3,
+                               msg_dtype=BF16)
+    print(f"bf16 decode at {label} B={llrs.shape[0]}: kernel {k_ms!r} ms, "
+          f"plain {p_ms!r} ms (calls, CUDA events) on {card}", flush=True)
+    time_ldpc_shape(label, rate, llrs, card, msg_dtype=BF16)
+
+
+def phase_bench(dev: torch.device, card: str) -> None:
+    """``bench_torch.py`` (bench.py's twin) as the next benchmark runs it:
+    bench.py's keys, three values > 0, both acquisition ok rates >= 0.99
+    and no main-path failure.  Then one step of each of its workloads at
+    full size in this process, with its fast modes: the bf16 LDPC kernel
+    launched in all three (the float32 one in none), the window kernel in
+    the Schmidl-Cox step, the bench's gate on each; and the bf16 kernel at
+    the chirp and Schmidl-Cox steps' shapes."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    res = run_bench()
+    require(set(res) == BENCH_KEYS, f"bench_torch.py keys {sorted(res)}")
+    require(res["unit"] == "pipelines/s/gpu"
+            and res["acq_unit"] == res["cox_unit"] == "frames/s/gpu",
+            f"bench_torch.py units {res}")
+    require(min(res["value"], res["acq_value"], res["cox_value"]) > 0,
+            f"bench_torch.py zeroed a metric: {res}")
+    require(min(res["acq_decode_ok_rate"], res["cox_decode_ok_rate"])
+            >= DECODE_GATE, f"bench_torch.py ok rates: {res}")
+    for key, rate, ok in (("value", "pipelines/s", "main path gate passed"),
+                          ("acq_value", "frames/s",
+                           f"ok rate {res['acq_decode_ok_rate']!r}"),
+                          ("cox_value", "frames/s",
+                           f"ok rate {res['cox_decode_ok_rate']!r}")):
+        print(f"bench_torch {res[key.replace('value', 'metric')]}: "
+              f"{res[key]!r} {rate}, {ok} on {card}", flush=True)
+
+    sizes = BT.FULL
+    info = torch.from_numpy(BT.main_info(sizes.batch)).to(dev)
+    acq_info = torch.from_numpy(BT.chirp_info(sizes.acq_batch)).to(dev)
+    acq_rx = W.add_noise_active(BT.chirp_tx(acq_info), BT.ACQ_SNR_DB,
+                                BT.generator(dev, 3))
+    cox_info = torch.from_numpy(BT.cox_info(sizes.cox_batch)).to(dev)
+    cox_rx = W.add_noise_active(BT.cox_tx(cox_info), BT.COX_SNR_DB,
+                                BT.generator(dev, 13))
+    # (label, step, info, kernels it must launch, bits checked on every
+    # lane: the main path's warm-up gate; an acquisition's on its ok lanes)
+    steps = (("main path", lambda: BT.main_step(info, BT.generator(dev, 0)),
+              info, ("ldpc_minsum_bf16",), True),
+             ("chirp", lambda: BT.chirp_step(acq_rx), acq_info,
+              ("ldpc_minsum_bf16",), False),
+             ("Schmidl-Cox", lambda: BT.cox_step(cox_rx), cox_info,
+              ("ldpc_minsum_bf16", "sc_windows"), False))
+    with BT.switched(BT.fast_modes({})):
+        for label, step, truth, kernels, every_lane in steps:
+            (out, ok), launches = launches_of(step)
+            label = f"bench_torch {label} step, fast modes on"
+            require_launched(label, launches, kernels)
+            require(launches["ldpc_minsum"] == 0,
+                    f"{label} launched the float32 LDPC kernel")
+            truth = truth.to(torch.uint8)
+            gate_decode(label, out, ok, truth)
+            require(not every_lane or bool((out == truth).all()),
+                    f"{label}: a lane's bits differ")
+        bench_bf16_shape("R1/4 5 dB chirp bench buffer", CHIRP_RATE,
+                         chirp_llrs(acq_rx), card)
+        bench_bf16_shape("R1/2 17 dB Schmidl-Cox bench buffer", RATE,
+                         cox_llrs(COX_CFG, MOD, RATE, 1, cox_rx), card)
+    require(ldpc_ops._DEFAULT_MSG_DTYPE == torch.float32 and not CH._BF16,
+            "phase_bench left a fast mode on")
+    print(f"phase_bench: {time.perf_counter() - t0!r} s", flush=True)
+
+
 def main() -> None:
     t0 = time.perf_counter()
     card = card_line()
@@ -3243,6 +3363,7 @@ def main() -> None:
     phase_parallel(dev, card)
     phase_tools(dev, card)
     phase_frontends(dev, card)
+    phase_bench(dev, card)
 
     require(not any(m == "jax" or m.startswith("jax.")
                     or m == "projectultra_tpu"

@@ -222,6 +222,42 @@ def test_chip_smoke_imports_only_the_port():
         assert not _forbidden(name), name
 
 
+def test_bench_torch_imports_only_the_port():
+    """bench_torch.py, bench.py's twin, imports nothing of jax, of the JAX
+    package or of bench.py."""
+    names = set(_imported_modules(ROOT / "bench_torch.py"))
+    assert "projectultra_tpu_torch" in names
+    for name in names:
+        assert not _forbidden(name) and name != "bench", name
+
+
+def test_bench_torch_import_leaves_jax_out():
+    code = ("import sys, bench_torch\n"
+            f"bad = sorted(k for k in sys.modules if any(k == t or "
+            f"k.startswith(t + '.') for t in {FORBIDDEN!r} + ('bench',)))\n"
+            "print('FORBIDDEN_MODULES', bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# Root scripts of the JAX package and the port's twin of each: bench.py's
+# workloads run in bench_torch.py, __graft_entry__.py's entry and
+# multi-chip dry run in parallel/dryrun.py.
+ROOT_TWINS = {"bench.py": "bench_torch.py",
+              "__graft_entry__.py": "projectultra_tpu_torch/parallel/dryrun.py"}
+
+
+def test_every_jax_root_script_has_a_twin():
+    """Every root *.py that imports jax or the JAX package has its twin."""
+    jax_scripts = {p.name for p in ROOT.glob("*.py")
+                   if any(_forbidden(n) for n in _imported_modules(p))}
+    assert jax_scripts == set(ROOT_TWINS)
+    for twin in ROOT_TWINS.values():
+        assert (ROOT / twin).is_file(), twin
+
+
 def test_import_pins_float32():
     import projectultra_tpu_torch  # noqa: F401
     assert torch.backends.cuda.matmul.allow_tf32 is False
@@ -241,11 +277,12 @@ def test_require_cuda_raises_without_a_card(monkeypatch):
                                    "sweep.run_point", "sweep.run_point_stream",
                                    "dcn.acq_sweep_counts", "dryrun.entry",
                                    "dryrun.dryrun_multichip", "tui.main",
-                                   "webui.main", "parity_curves.main"])
+                                   "webui.main", "parity_curves.main",
+                                   "bench_torch.main"])
 def test_entry_points_take_the_card(entry, monkeypatch, tmp_path):
     """Without a device each entry point of the protocol and parallel
-    slices, and each front-end tool without ``--cpu``, asks for the first
-    CUDA device, so it raises where there is none."""
+    slices, and each front-end tool and the bench without ``--cpu``, asks
+    for the first CUDA device, so it raises where there is none."""
     from projectultra_tpu_torch import cli
     from projectultra_tpu_torch.modem.rx_pipeline import RxPipeline
     from projectultra_tpu_torch.parallel import dcn, dryrun, sweep
@@ -268,7 +305,9 @@ def test_entry_points_take_the_card(entry, monkeypatch, tmp_path):
             "webui.main": lambda: _tool("torch_webui").main(
                 ["--script", "--port", "0"]),
             "parity_curves.main": lambda: _tool("torch_parity_curves").main(
-                ["--points", "20"])}[entry]
+                ["--points", "20"]),
+            "bench_torch.main": lambda: importlib.import_module(
+                "bench_torch").main([])}[entry]
     with pytest.raises(RuntimeError):
         call()
 
