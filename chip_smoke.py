@@ -189,7 +189,9 @@ Phases:
     kernel's bf16 instantiation against the plain
     decoder with bf16 messages, lane-exact (bits, ok, iterations) on the
     main path's 17 dB LLRs (B = 16,384), the sigma 0.62 waterfall batch of
-    16,384 and an R1/4 sigma 1.1 batch with trap_escape; its call ms
+    16,384, an R1/4 sigma 1.1 batch with trap_escape and a batch of LLRs
+    near +-3e38 and +-1e-40 (``extreme_llrs``), and its shared bytes per
+    block beside the float32 one's (check-row records); its call ms
     beside the float32 kernel's at the first two (CUDA events, turns f32,
     bf16, bf16, f32) and its device ms against its bound at all three
     (the same LLR bytes); tests/test_ldpc.py's two bf16-vs-f32 rate
@@ -438,7 +440,8 @@ def compare_decoders(rate: CodeRate, llrs: torch.Tensor, label: str,
     bits_eq = bool(((llr_k[:, :k] < 0) == (llr_p[:, :k] < 0)).all())
     ok_eq = bool((ok_k == ok_p).all())
     it_eq = bool((it_k == it_p).all())
-    err = float((llr_k - llr_p).abs().max())
+    err = float(torch.where(llr_k == llr_p, 0.0,
+                            (llr_k - llr_p).abs()).max())  # equal infs: 0
     if trap_escape:
         label += ", trap_escape"
     print(f"kernel vs plain [{label}] B={llrs.shape[0]}: bits_equal={bits_eq} "
@@ -2796,6 +2799,24 @@ def bf16_rate_gates(dev: torch.device) -> None:
             require(abs(r32 - r16) <= gate, f"bf16 rate gate at sigma {sigma}")
 
 
+def extreme_llrs(B: int) -> np.ndarray:
+    """R1/2 sigma 0.62 waterfall LLRs of B lanes with their magnitudes
+    replaced, signs kept: a quarter near 3e38 (bf16 c2v near 2.25e38,
+    totals that overflow to +-inf), a quarter near 1e-40 (bf16 subnormals,
+    the smallest rounding to +-0), a quarter mixing both with the noisy
+    LLRs element by element, a quarter as drawn."""
+    llr = waterfall_llrs(RATE, 0.62, B)
+    rng = np.random.default_rng(77)
+    sign = np.where(llr < 0, -1.0, 1.0)
+    huge = sign * rng.uniform(2.9e38, 3.0e38, llr.shape)
+    tiny = sign * rng.uniform(0.0, 2e-40, llr.shape)
+    pick = rng.integers(0, 3, llr.shape)
+    mixed = np.where(pick == 1, huge, np.where(pick == 2, tiny, llr))
+    q = B // 4
+    return np.concatenate([huge[:q], tiny[q:2 * q], mixed[2 * q:3 * q],
+                           llr[3 * q:]]).astype(np.float32)
+
+
 def bf16_vs_f32_shape(label: str, llrs: torch.Tensor, card: str,
                       reps: int):
     """The two instantiations' call ms at one shape (CUDA events around
@@ -2913,6 +2934,12 @@ def phase_bf16(dev: torch.device, card: str, deint: torch.Tensor):
         .to(dev)
     compare_decoders(rate, trap, f"waterfall {GOLDEN_NAMES[rate]} "
                      f"sigma={sigma}", trap_escape=True, msg_dtype=BF16)
+    compare_decoders(RATE, torch.from_numpy(extreme_llrs(
+        WATERFALL_BATCH)).to(dev), "LLRs near +-3e38 and +-1e-40",
+        msg_dtype=BF16)
+    print(f"LDPC shared bytes per block (R1/2): bf16 "
+          f"{cuda_ldpc.shared_bytes(graph, BF16)}, float32 "
+          f"{cuda_ldpc.shared_bytes(graph, torch.float32)}", flush=True)
 
     k_ms, p_ms = time_decoders(graph, deint, kernel_reps=20, plain_reps=5,
                                msg_dtype=BF16)

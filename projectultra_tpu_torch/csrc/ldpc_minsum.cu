@@ -37,9 +37,10 @@
 //     the R1/2 code's rows have degrees 2 to 7 in no order, so an unsorted
 //     warp issued 7 or 8 slots for rows of 5 edges on average;
 //   * one block per codeword, its whole state in shared memory (llr_in,
-//     llr_total and the d-major c2v array: 14 KB at R1/2, 19 KB at R1/4),
-//     256 threads for large batches and 1,024 for small ones, where a wider
-//     block cuts the slowest codeword's latency (cuda_ldpc.block_threads_for);
+//     llr_total and the edge messages: 14 KB at R1/2, 19 KB at R1/4 with
+//     float32 messages), 256 threads for large batches and 1,024 for small
+//     ones, where a wider block cuts the slowest codeword's latency
+//     (cuda_ldpc.block_threads_for);
 //   * a codeword whose channel decisions already satisfy every check
 //     (every codeword at high SNR; known for free from the signs the first
 //     check update reads) runs its first syndrome without the check update
@@ -62,15 +63,44 @@
 // is contracted into an add; the additions run in the order written.
 //
 // bfloat16 messages (the JAX decoder's msg_dtype=bfloat16 fast mode, an
-// XLA decode there, not a Pallas one): a second instantiation, MSG_BF16,
-// rounds each v2c value (the channel LLR on the first pass, the clamped
-// difference after it) to bfloat16, nearest-even, and reads it back as
-// float32 where the row pass makes it, before the two-minima update --
-// exactly where the JAX decoder stores its bf16 messages.  Its sign is
-// tested on the rounded value (a tiny negative LLR can round to -0, which
-// is not negative).  c2v stays float32 in shared memory: 0.75 times a
-// bfloat16 magnitude needs up to 10 significant bits.  The float32
-// instantiation compiles to the same code as before (if constexpr).
+// XLA decode there, not a Pallas one): the RECORDS instantiation.  Each v2c
+// value (the channel LLR on the first pass, the clamped difference after
+// it) is rounded to bfloat16, nearest-even, where the row pass makes it,
+// before the two-minima update -- exactly where the JAX decoder stores its
+// bf16 messages; its sign is tested on the rounded value (a tiny negative
+// LLR can round to -0, which is not negative).  A row's c2v values are
+// then fixed by its two minima, the slot of the first and the D signs, so
+// instead of D float32 c2v values the row keeps one 8-byte record (below):
+// 2n*4 + 8m bytes of shared memory a codeword instead of (2n + Dm)*4
+// (R1/2: 7,776 instead of 14,256), and the row pass makes one record load
+// and one record store per row instead of deg loads and deg stores.  The
+// passes rebuild each c2v from the record where they read it; min1 and min2
+// are magnitudes of bf16 values, and 0.75 times a bf16 magnitude is exact
+// in float32 (10 significant bits, subnormals and inf included), so every
+// rebuilt c2v is bit for bit the float32 value the float32-state design
+// stored, and bits, ok flags and iterations stay those of the plain bf16
+// decoder.  The variable pass reads a (row << 3 | slot) table
+// (LDPCGraph.sorted_var_slots), whose entry is the record's byte offset
+// plus its slot, so no division by m is left on an edge.
+// What bounds it is what bounds the float32 design, with fewer shared
+// stores and more integer work per edge (a rebuild is a shift, a select
+// and a multiply).  What measuring it on an H100 decided: the record kernel
+// has to stay at 32 registers, as the float32 one does.  The float32
+// design's five-deep preload of the variable pass, holding 8-byte records,
+// took it to 39 (6 blocks of 256 per SM; 32 with spills at 1,024 threads)
+// and made it slower than the float32-state bf16 kernel at the main path
+// and on the small batches; so a warp of degree-1 variables takes its one
+// edge directly and the others loop, and the c2v sign goes into the 0.75
+// factor (one dependent operation less per edge).  Tried and measured
+// slower, so not kept: __launch_bounds__ minimum blocks (32 registers, but
+// slower B = 1 and stuck-lane batches at 1,024 threads), the preload split
+// 3 + 2 (32 registers, but slower on the waterfall and at B = 1 R1/4), the
+// loop in batches of 2 or 3 loads (38-40 registers), the loop without
+// unrolling, the row pass rebuilding per slot from the record word instead
+// of its two scaled minima, and the LLR rows copied in and out with one
+// TMA bulk copy (cp.async.bulk and an mbarrier) instead of 16-byte loads.
+// The float32 instantiation compiles to the same code as before (if
+// constexpr).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,16 +112,9 @@ constexpr int kMaxDegree = 7;    // check degree bound (the codes have D = 7)
 constexpr float kScale = 0.75f;  // MIN_SUM_SCALE
 constexpr float kClamp = 50.0f;  // V2C_CLAMP
 
-// A v2c value as the decoder stores it: rounded to bfloat16 and read back
-// when MSG_BF16, else unchanged.
-template <bool MSG_BF16>
-__device__ __forceinline__ float stored(float x) {
-  if constexpr (MSG_BF16) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  } else {
-    return x;
-  }
-}
+// ---------------------------------------------------------------------------
+// float32 messages: D c2v values per check row, d-major
+// ---------------------------------------------------------------------------
 
 // Check-row pass for row i, unrolled for K >= deg slots.  Reads the row's
 // v2c (first: the channel LLRs; later: clamp(llr_total[var] - c2v)), writes
@@ -99,7 +122,7 @@ __device__ __forceinline__ float stored(float x) {
 // `update` is set, and returns whether the row is unsatisfied: by the hard
 // decision of llr_total when `check` is set, else (first) by the hard
 // decision of the channel LLRs, whose signs the update reads anyway.
-template <int K, bool MSG_BF16>
+template <int K>
 __device__ __forceinline__ bool row_pass(
     int i, int m, int D, const int* __restrict__ row_vars,
     const int* __restrict__ row_deg, const float* llr_in,
@@ -115,10 +138,10 @@ __device__ __forceinline__ bool row_pass(
       if (check) parity ^= (llr_tot[var] < 0.0f) ? 1 : 0;
       if (update) {
         if (first) {
-          v[d] = stored<MSG_BF16>(llr_in[var]);
+          v[d] = llr_in[var];
         } else {
           const float x = __fsub_rn(llr_tot[var], msg[d * m + i]);
-          v[d] = stored<MSG_BF16>(fminf(fmaxf(x, -kClamp), kClamp));
+          v[d] = fminf(fmaxf(x, -kClamp), kClamp);
         }
       }
     }
@@ -153,25 +176,6 @@ __device__ __forceinline__ bool row_pass(
   return parity != 0;
 }
 
-// The row pass with K chosen by the warp's largest degree: rows are sorted
-// by degree, descending, and a warp's rows are 32 consecutive ones starting
-// at a multiple of 32, so the first of them has the largest degree.
-template <bool MSG_BF16>
-__device__ __forceinline__ bool row_pass_sorted(
-    int i, int m, int D, const int* __restrict__ row_vars,
-    const int* __restrict__ row_deg, const float* llr_in,
-    const float* llr_tot, float* msg, bool first, bool check, bool update) {
-  const int warp_deg = __ldg(row_deg + (i & ~31));
-  if (warp_deg <= 3)
-    return row_pass<3, MSG_BF16>(i, m, D, row_vars, row_deg, llr_in, llr_tot, msg,
-                       first, check, update);
-  if (warp_deg <= 5)
-    return row_pass<5, MSG_BF16>(i, m, D, row_vars, row_deg, llr_in, llr_tot, msg,
-                       first, check, update);
-  return row_pass<kMaxDegree, MSG_BF16>(i, m, D, row_vars, row_deg, llr_in, llr_tot,
-                              msg, first, check, update);
-}
-
 // llr_total[v] = llr_in[v] + c2v over v's deg edges, ascending check
 // order.  A warp whose variables all have at most 5 edges (every warp of
 // the R1/2 code; the degree-1 warps of the others) issues the edges'
@@ -202,7 +206,187 @@ __device__ __forceinline__ void var_pass(
   }
 }
 
-template <int BLOCK, bool MSG_BF16>
+// ---------------------------------------------------------------------------
+// bfloat16 messages: one record per check row
+// ---------------------------------------------------------------------------
+//
+// A row's record (uint2, 8 bytes):
+//   x = min1's bfloat16 bits << 16 | min2's bfloat16 bits: the row's two
+//       smallest |v2c|, each a bf16 magnitude;
+//   y = bit 31 - d set where the row's c2v on slot d is negative (d < deg;
+//       clear beyond), and bit 24 - amin set, amin the slot of min1 (its
+//       first occurrence).
+// The row's c2v on slot d is (sign_d * (d == amin ? min2 : min1)) * 0.75;
+// y << d holds slot d's sign in bit 31 and d == amin in bit 24, so the
+// slot is spent in one shift.
+
+// A v2c value rounded to bfloat16, nearest-even, and read back.
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+constexpr unsigned kSignBit = 0x80000000u;
+constexpr unsigned kAminBit = 0x01000000u;
+
+// The c2v of record r on slot d, bit for bit (sign * min_excl) * 0.75:
+// multiplying by -1 is exact, so min_excl * (sign * 0.75) rounds alike.
+__device__ __forceinline__ float rebuild(uint2 r, int d) {
+  const unsigned t = r.y << d;
+  const unsigned mag = (t & kAminBit) ? (r.x << 16) : (r.x & 0xffff0000u);
+  return __fmul_rn(__uint_as_float(mag),
+                   __uint_as_float(__float_as_uint(kScale) | (t & kSignBit)));
+}
+
+// The check-row pass of the float32 design (arguments alike) on records:
+// the old c2v come from the row's record, read before it is overwritten
+// (its two scaled minima once, then a select and a sign per slot).
+template <int K>
+__device__ __forceinline__ bool row_pass_records(
+    int i, int D, const int* __restrict__ row_vars,
+    const int* __restrict__ row_deg, const float* llr_in,
+    const float* llr_tot, uint2* rec, bool first, bool check, bool update) {
+  const int deg = row_deg[i];
+  const int* rv = row_vars + (size_t)i * D;
+  float c1 = 0.0f, c2 = 0.0f;  // min1 * 0.75 and min2 * 0.75 of the record
+  unsigned meta = 0;
+  if (update && !first) {
+    const uint2 r = rec[i];
+    c1 = __fmul_rn(__uint_as_float(r.x & 0xffff0000u), kScale);
+    c2 = __fmul_rn(__uint_as_float(r.x << 16), kScale);
+    meta = r.y;
+  }
+  float v[kMaxDegree];
+  int parity = 0;
+#pragma unroll
+  for (int d = 0; d < K; ++d) {
+    if (d < deg) {
+      const int var = rv[d];
+      if (check) parity ^= (llr_tot[var] < 0.0f) ? 1 : 0;
+      if (update) {
+        if (first) {
+          v[d] = bf16_round(llr_in[var]);
+        } else {
+          const unsigned t = meta << d;
+          const float c = __uint_as_float(
+              __float_as_uint((t & kAminBit) ? c2 : c1) | (t & kSignBit));
+          const float x = __fsub_rn(llr_tot[var], c);
+          v[d] = bf16_round(fminf(fmaxf(x, -kClamp), kClamp));
+        }
+      }
+    }
+  }
+  if (update) {
+    const float inf = __int_as_float(0x7f800000);
+    float min1 = inf, min2 = inf;
+    int amin = 0, par = 0;
+    unsigned negs = 0;
+#pragma unroll
+    for (int d = 0; d < K; ++d) {
+      if (d < deg) {
+        const float a = fabsf(v[d]);
+        const int neg = v[d] < 0.0f ? 1 : 0;
+        negs |= (unsigned)neg << (31 - d);
+        par ^= neg;
+        const bool is_new = a < min1;
+        min2 = is_new ? min1 : (a < min2 ? a : min2);
+        amin = is_new ? d : amin;
+        min1 = is_new ? a : min1;
+      }
+    }
+    // c2v's sign on slot d is par ^ neg_d: flip the row's deg sign bits.
+    const unsigned flip = par ? ~(0xffffffffu >> deg) : 0u;
+    rec[i] = make_uint2(__float_as_uint(min1) | (__float_as_uint(min2) >> 16),
+                        (negs ^ flip) | (kAminBit >> amin));
+    if (first) parity = par;
+  }
+  return parity != 0;
+}
+
+// The variable pass of the float32 design on records: var_slots [n, Dv]
+// holds (sorted row << 3 | slot), the record's byte offset plus its slot.
+// A warp whose variables have at most one edge (the parity bits: half the
+// variables of every code) takes it without the loop; the others loop.
+// (The float32 design's five-deep preload of records took the kernel to 39
+// registers and lost.)
+__device__ __forceinline__ void var_pass_records(
+    int n, int Dv, const int* __restrict__ var_slots,
+    const int* __restrict__ var_deg, const float* llr_in, float* llr_tot,
+    const uint2* rec) {
+  const char* base = reinterpret_cast<const char*>(rec);
+  for (int v = threadIdx.x; v < n; v += blockDim.x) {
+    const int* ve = var_slots + (size_t)v * Dv;
+    const int deg = __ldg(var_deg + v);
+    const unsigned warp_deg = __reduce_max_sync(__activemask(), deg);
+    float s = llr_in[v];
+    if (warp_deg <= 1) {
+      const int e = deg > 0 ? ve[0] : 0;
+      const uint2 r = *reinterpret_cast<const uint2*>(base + (e & ~7));
+      if (deg > 0) s = __fadd_rn(s, rebuild(r, e & 7));
+    } else {
+      for (int j = 0; j < deg; ++j) {
+        const int e = ve[j];
+        s = __fadd_rn(s, rebuild(*reinterpret_cast<const uint2*>(
+                                     base + (e & ~7)), e & 7));
+      }
+    }
+    llr_tot[v] = s;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The decoder
+// ---------------------------------------------------------------------------
+
+template <int K, bool RECORDS>
+__device__ __forceinline__ bool row_pass_k(
+    int i, int m, int D, const int* __restrict__ row_vars,
+    const int* __restrict__ row_deg, const float* llr_in,
+    const float* llr_tot, float* msg, bool first, bool check, bool update) {
+  if constexpr (RECORDS) {
+    return row_pass_records<K>(i, D, row_vars, row_deg, llr_in, llr_tot,
+                               reinterpret_cast<uint2*>(msg), first, check,
+                               update);
+  } else {
+    return row_pass<K>(i, m, D, row_vars, row_deg, llr_in, llr_tot, msg,
+                       first, check, update);
+  }
+}
+
+// The row pass with K chosen by the warp's largest degree: rows are sorted
+// by degree, descending, and a warp's rows are 32 consecutive ones starting
+// at a multiple of 32, so the first of them has the largest degree.
+template <bool RECORDS>
+__device__ __forceinline__ bool row_pass_sorted(
+    int i, int m, int D, const int* __restrict__ row_vars,
+    const int* __restrict__ row_deg, const float* llr_in,
+    const float* llr_tot, float* msg, bool first, bool check, bool update) {
+  const int warp_deg = __ldg(row_deg + (i & ~31));
+  if (warp_deg <= 3)
+    return row_pass_k<3, RECORDS>(i, m, D, row_vars, row_deg, llr_in, llr_tot,
+                                  msg, first, check, update);
+  if (warp_deg <= 5)
+    return row_pass_k<5, RECORDS>(i, m, D, row_vars, row_deg, llr_in, llr_tot,
+                                  msg, first, check, update);
+  return row_pass_k<kMaxDegree, RECORDS>(i, m, D, row_vars, row_deg, llr_in,
+                                         llr_tot, msg, first, check, update);
+}
+
+template <bool RECORDS>
+__device__ __forceinline__ void var_pass_of(
+    int n, int Dv, const int* __restrict__ var_edges,
+    const int* __restrict__ var_deg, const float* llr_in, float* llr_tot,
+    const float* msg) {
+  if constexpr (RECORDS) {
+    var_pass_records(n, Dv, var_edges, var_deg, llr_in, llr_tot,
+                     reinterpret_cast<const uint2*>(msg));
+  } else {
+    var_pass(n, Dv, var_edges, var_deg, llr_in, llr_tot, msg);
+  }
+}
+
+// RECORDS: bfloat16 messages kept as check-row records, and var_edges is
+// the (row << 3 | slot) table; else float32 c2v and d-major edge indices.
+template <int BLOCK, bool RECORDS>
 __global__ void __launch_bounds__(BLOCK) ldpc_minsum_kernel(
     const float* __restrict__ llr, const int* __restrict__ row_vars,
     const int* __restrict__ row_deg, const int* __restrict__ var_edges,
@@ -212,7 +396,7 @@ __global__ void __launch_bounds__(BLOCK) ldpc_minsum_kernel(
   extern __shared__ __align__(16) float smem[];
   float* llr_in = smem;           // [n]
   float* llr_tot = smem + n;      // [n]
-  float* msg = smem + 2 * n;      // [D * m], d-major: edge (i, d) at d*m + i
+  float* msg = smem + 2 * n;      // [D * m] c2v, d-major; RECORDS: [m] uint2
   const int b = blockIdx.x;
 
   const float4* src = reinterpret_cast<const float4*>(llr + (size_t)b * n);
@@ -230,11 +414,11 @@ __global__ void __launch_bounds__(BLOCK) ldpc_minsum_kernel(
     // check.
     int noisy = 0;
     for (int i = threadIdx.x; i < m; i += blockDim.x)
-      noisy |= row_pass_sorted<MSG_BF16>(i, m, D, row_vars, row_deg, llr_in, llr_tot,
-                               msg, /*first=*/true, /*check=*/false,
-                               /*update=*/true);
+      noisy |= row_pass_sorted<RECORDS>(i, m, D, row_vars, row_deg, llr_in,
+                                        llr_tot, msg, /*first=*/true,
+                                        /*check=*/false, /*update=*/true);
     bool clean = !__syncthreads_or(noisy);
-    var_pass(n, Dv, var_edges, var_deg, llr_in, llr_tot, msg);
+    var_pass_of<RECORDS>(n, Dv, var_edges, var_deg, llr_in, llr_tot, msg);
     __syncthreads();
     for (int it = 0;;) {
       // Syndrome of iteration `it`, fused with the check update of
@@ -243,9 +427,10 @@ __global__ void __launch_bounds__(BLOCK) ldpc_minsum_kernel(
       const bool more = it + 1 < max_iters;
       int unsat = 0;
       for (int i = threadIdx.x; i < m; i += blockDim.x)
-        unsat |= row_pass_sorted<MSG_BF16>(i, m, D, row_vars, row_deg, llr_in, llr_tot,
-                                 msg, /*first=*/false, /*check=*/true,
-                                 /*update=*/more && !clean);
+        unsat |= row_pass_sorted<RECORDS>(i, m, D, row_vars, row_deg, llr_in,
+                                          llr_tot, msg, /*first=*/false,
+                                          /*check=*/true,
+                                          /*update=*/more && !clean);
       if (!__syncthreads_or(unsat)) {
         ok = true;
         iters = it;
@@ -259,7 +444,7 @@ __global__ void __launch_bounds__(BLOCK) ldpc_minsum_kernel(
         clean = false;
         continue;
       }
-      var_pass(n, Dv, var_edges, var_deg, llr_in, llr_tot, msg);
+      var_pass_of<RECORDS>(n, Dv, var_edges, var_deg, llr_in, llr_tot, msg);
       __syncthreads();
       ++it;
     }
@@ -277,16 +462,23 @@ __global__ void __launch_bounds__(BLOCK) ldpc_minsum_kernel(
 using Kernel = void (*)(const float*, const int*, const int*, const int*,
                         const int*, float*, uint8_t*, int*, int, int, int, int, int);
 
-template <bool MSG_BF16>
+template <bool RECORDS>
 Kernel kernel_for(int threads) {
   switch (threads) {
-    case 256: return ldpc_minsum_kernel<256, MSG_BF16>;
-    case 1024: return ldpc_minsum_kernel<1024, MSG_BF16>;
+    case 256: return ldpc_minsum_kernel<256, RECORDS>;
+    case 1024: return ldpc_minsum_kernel<1024, RECORDS>;
     default: return nullptr;
   }
 }
 
-int launch(Kernel kernel, const float* llr, const int* row_vars,
+// Dynamic shared memory of one block: llr_in and llr_total, then D float32
+// c2v per check row, or one 8-byte record per row.
+size_t shared_bytes(int n, int m, int D, bool records) {
+  return records ? (size_t)2 * n * sizeof(float) + (size_t)m * sizeof(uint2)
+                 : (size_t)(2 * n + D * m) * sizeof(float);
+}
+
+int launch(Kernel kernel, bool records, const float* llr, const int* row_vars,
            const int* row_deg, const int* var_edges, const int* var_deg,
            float* llr_out, uint8_t* ok, int* iters, int B, int n, int m,
            int D, int Dv, int max_iters, int threads, void* stream) {
@@ -294,7 +486,7 @@ int launch(Kernel kernel, const float* llr, const int* row_vars,
       m < 1 || Dv < 1 || max_iters < 0 || B < 0 ||
       ((uintptr_t)llr | (uintptr_t)llr_out) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(2 * n + D * m) * sizeof(float);
+  const size_t smem = shared_bytes(n, m, D, records);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;  // 19 KB at R1/4
   if (B == 0) return 0;
   kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
@@ -319,20 +511,28 @@ int ldpc_minsum_decode(const float* llr, const int* row_vars,
                        const int* var_deg, float* llr_out, uint8_t* ok, int* iters, int B, int n,
                        int m, int D, int Dv, int max_iters, int threads,
                        void* stream) {
-  return launch(kernel_for<false>(threads), llr, row_vars, row_deg,
+  return launch(kernel_for<false>(threads), false, llr, row_vars, row_deg,
                 var_edges, var_deg, llr_out, ok, iters, B, n, m, D, Dv,
                 max_iters, threads, stream);
 }
 
-// The same decoder with bfloat16 v2c messages (arguments as above).
+// The same decoder with bfloat16 v2c messages, kept as check-row records
+// (arguments as above, but var_slots [n, Dv] holds each variable's edges
+// as (sorted row << 3 | slot), in the same order).
 int ldpc_minsum_decode_bf16(const float* llr, const int* row_vars,
-                            const int* row_deg, const int* var_edges,
+                            const int* row_deg, const int* var_slots,
                             const int* var_deg, float* llr_out, uint8_t* ok,
                             int* iters, int B, int n, int m, int D, int Dv,
                             int max_iters, int threads, void* stream) {
-  return launch(kernel_for<true>(threads), llr, row_vars, row_deg,
-                var_edges, var_deg, llr_out, ok, iters, B, n, m, D, Dv,
+  return launch(kernel_for<true>(threads), true, llr, row_vars, row_deg,
+                var_slots, var_deg, llr_out, ok, iters, B, n, m, D, Dv,
                 max_iters, threads, stream);
+}
+
+// Dynamic shared bytes a block of the float32 (bf16 = 0) or the bfloat16
+// decoder takes for a code of n variables and m check rows of degree <= D.
+long long ldpc_minsum_shared_bytes(int n, int m, int D, int bf16) {
+  return (long long)shared_bytes(n, m, D, bf16 != 0);
 }
 
 const char* ldpc_minsum_error_string(int code) {

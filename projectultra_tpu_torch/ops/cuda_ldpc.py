@@ -12,14 +12,17 @@ allocates nothing: this wrapper allocates the outputs with ``torch.empty``.
 The library holds two instantiations of the kernel, one per edge-message
 dtype (``ldpc_minsum_decode`` with float32 messages,
 ``ldpc_minsum_decode_bf16`` with bfloat16 ones; the LLRs in and out are
-float32 in both).  ``launches`` counts the float32 kernel's launches made
-through ``decode_cuda``, ``launches_bf16`` the bfloat16 kernel's.
+float32 in both; the bfloat16 one keeps one 8-byte record per check row
+instead of D float32 messages).  ``launches`` counts the float32 kernel's
+launches made through ``decode_cuda``, ``launches_bf16`` the bfloat16
+kernel's.
 
 Launch shape: one block per codeword, of ``block_threads_for(B, SMs)``
 threads: 256 at large batches, 1,024 at small ones, where the few blocks'
 own latency is the kernel's time.  The kernel reads the graph with its
-check rows sorted by degree (``LDPCGraph.sorted_*``) and the variables'
-degrees (``LDPCGraph.var_deg``).
+check rows sorted by degree (``LDPCGraph.sorted_*``; the bfloat16 one its
+variable table as ``sorted_var_slots``) and the variables' degrees
+(``LDPCGraph.var_deg``).
 """
 
 from __future__ import annotations
@@ -49,6 +52,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     for entry in (lib.ldpc_minsum_decode, lib.ldpc_minsum_decode_bf16):
         entry.argtypes = [vp] * 8 + [ci] * 7 + [vp]
         entry.restype = ci
+    lib.ldpc_minsum_shared_bytes.argtypes = [ci] * 4
+    lib.ldpc_minsum_shared_bytes.restype = ctypes.c_longlong
     lib.ldpc_minsum_error_string.argtypes = [ci]
     lib.ldpc_minsum_error_string.restype = ctypes.c_char_p
 
@@ -76,6 +81,14 @@ def nvcc_command(nvcc: str, source: Path, output: Path) -> list[str]:
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; raises on failure."""
     return LIBRARY.load()
+
+
+def shared_bytes(graph, msg_dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block of the instantiation of
+    ``msg_dtype`` on ``graph``'s code, as the kernel library counts it."""
+    bf16 = msg_dtype_of(msg_dtype) == torch.bfloat16
+    return int(load_library().ldpc_minsum_shared_bytes(graph.n, graph.m,
+                                                       graph.D, int(bf16)))
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
@@ -110,8 +123,9 @@ def launch(graph, llrs: torch.Tensor, max_iters: int,
     _check("llrs", llrs, torch.float32, (B, n), dev)
     _check("sorted_row_vars", graph.sorted_row_vars, torch.int32, (m, D), dev)
     _check("sorted_row_deg", graph.sorted_row_deg, torch.int32, (m,), dev)
-    _check("sorted_var_edges", graph.sorted_var_edges, torch.int32, (n, Dv),
-           dev)
+    table = "sorted_var_slots" if bf16 else "sorted_var_edges"
+    var_table = getattr(graph, table)
+    _check(table, var_table, torch.int32, (n, Dv), dev)
     _check("var_deg", graph.var_deg, torch.int32, (n,), dev)
     if n % 4:
         raise ValueError(f"the kernel copies rows in 16-byte chunks: n={n}")
@@ -131,7 +145,7 @@ def launch(graph, llrs: torch.Tensor, max_iters: int,
     with torch.cuda.device(dev):
         err = entry(
             llrs.data_ptr(), graph.sorted_row_vars.data_ptr(),
-            graph.sorted_row_deg.data_ptr(), graph.sorted_var_edges.data_ptr(),
+            graph.sorted_row_deg.data_ptr(), var_table.data_ptr(),
             graph.var_deg.data_ptr(),
             llr_out.data_ptr(), ok.data_ptr(), iters.data_ptr(), B, n, m, D,
             Dv, max_iters, threads,

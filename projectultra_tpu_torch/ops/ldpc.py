@@ -111,6 +111,15 @@ def _sorted_rows(code: LDPCCode, var_edges: np.ndarray):
             np.ascontiguousarray(e, np.int32))
 
 
+def _slot_table(sorted_var_edges: np.ndarray, m: int, D: int) -> np.ndarray:
+    """The bf16 kernel's variable table: the edges of ``sorted_var_edges``
+    (e = d*m + sorted row) in the same order as (sorted row << 3 | d), the
+    byte offset of the row's 8-byte record plus its slot; -1 beyond each
+    variable's degree."""
+    e = sorted_var_edges.astype(np.int64)
+    return np.where(e < D * m, ((e % m) << 3) | (e // m), -1).astype(np.int32)
+
+
 class LDPCGraph(nn.Module):
     """One code rate's Tanner graph as device buffers.
 
@@ -119,8 +128,9 @@ class LDPCGraph(nn.Module):
     lists, valid edges first), ``row_deg`` [m] int32, ``var_edges``
     [n, Dv] int32 (see ``_var_edge_table``); for the CUDA kernel, the same
     graph with its check rows sorted by degree (``sorted_row_vars``,
-    ``sorted_row_deg``, ``sorted_var_edges``; see ``_sorted_rows``) and
-    ``var_deg`` [n] int32, each variable's number of edges."""
+    ``sorted_row_deg``, ``sorted_var_edges``; see ``_sorted_rows``),
+    ``var_deg`` [n] int32, each variable's number of edges, and for the
+    bf16 kernel ``sorted_var_slots`` [n, Dv] int32 (``_slot_table``)."""
 
     def __init__(self, code: LDPCCode, var_edges: np.ndarray | None = None):
         super().__init__()
@@ -145,6 +155,8 @@ class LDPCGraph(nn.Module):
             self.register_buffer(name, torch.from_numpy(table))
         self.register_buffer("var_deg", torch.from_numpy(
             (var_edges < self.D * self.m).sum(1).astype(np.int32)))
+        self.register_buffer("sorted_var_slots", torch.from_numpy(_slot_table(
+            self.sorted_var_edges.numpy(), self.m, self.D)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -169,8 +181,10 @@ def encode_with(graph: LDPCGraph, info_bits: torch.Tensor) -> torch.Tensor:
 # Plain PyTorch decoder (CPU path and test oracle for the CUDA kernel)
 # ---------------------------------------------------------------------------
 
-def _c2v(graph: LDPCGraph, v2c: torch.Tensor) -> torch.Tensor:
-    """[B, D, m] v2c -> [B, D, m] c2v (masked edges 0)."""
+def _two_minima(graph: LDPCGraph, v2c: torch.Tensor):
+    """[B, D, m] v2c -> each row's (min1, min2, first-occurrence argmin,
+    sign parity, list of D negative flags), all [B, m] (masked edges
+    neither minima nor negative)."""
     mask = graph.row_mask.T                                  # [D, m]
     inf = torch.full((), float("inf"), dtype=torch.float32, device=v2c.device)
     B, D, m = v2c.shape
@@ -188,12 +202,59 @@ def _c2v(graph: LDPCGraph, v2c: torch.Tensor) -> torch.Tensor:
         min2 = torch.where(is_new, min1, torch.minimum(min2, a))
         amin = torch.where(is_new, d, amin)
         min1 = torch.where(is_new, a, min1)
+    return min1, min2, amin, par, negs
+
+
+def _c2v(graph: LDPCGraph, v2c: torch.Tensor) -> torch.Tensor:
+    """[B, D, m] v2c -> [B, D, m] c2v (masked edges 0)."""
+    mask = graph.row_mask.T                                  # [D, m]
+    D = v2c.shape[1]
+    min1, min2, amin, par, negs = _two_minima(graph, v2c)
     out = []
     for d in range(D):
         sign = 1.0 - 2.0 * ((par ^ negs[d]) & 1).to(torch.float32)
         min_excl = torch.where(amin == d, min2, min1)
         out.append(torch.where(mask[d], sign * min_excl * MIN_SUM_SCALE, 0.0))
     return torch.stack(out, dim=1)
+
+
+# The bf16 kernel's check-row record, modelled in plain PyTorch for the
+# tests (no decode runs it): two int64 words per row holding the record's
+# 32-bit words, x = min1's bf16 bits << 16 | min2's, y = bit 31 - d set
+# where the row's c2v on slot d is negative and bit 24 - amin set, amin the
+# slot of min1.
+
+def pack_records(graph: LDPCGraph, v2c: torch.Tensor) -> torch.Tensor:
+    """[B, D, m] bf16-valued v2c (bf16 messages read back as float32) ->
+    [B, m, 2] int64 records, as the bf16 kernel's row pass stores them."""
+    min1, min2, amin, par, negs = _two_minima(graph, v2c)
+    sign = torch.zeros_like(par, dtype=torch.int64)
+    for d, neg in enumerate(negs):                 # c2v's sign: par ^ neg_d
+        sign |= (graph.row_mask[:, d] & ((par ^ neg) == 1)).long() << (31 - d)
+
+    def bits(x):
+        return x.to(torch.bfloat16).view(torch.int16).long() & 0xFFFF
+
+    return torch.stack([(bits(min1) << 16) | bits(min2),
+                        sign | (0x01000000 >> amin.long())], dim=-1)
+
+
+def rebuild_c2v(records: torch.Tensor, slot) -> torch.Tensor:
+    """The c2v of [..., 2] records on ``slot`` (an int or a tensor that
+    broadcasts), float32: (sign * (slot == argmin ? min2 : min1)) * 0.75,
+    as the kernel rebuilds it: min_excl * (sign * 0.75)."""
+    mins, t = records[..., 0], records[..., 1] << slot
+    mag = torch.where((t & 0x01000000) != 0, (mins << 16) & 0xFFFF0000,
+                      mins & 0xFFFF0000)
+    scale = torch.where((t & 0x80000000) != 0, -MIN_SUM_SCALE, MIN_SUM_SCALE)
+    return mag.to(torch.int32).view(torch.float32) * scale   # mag < 2**31
+
+
+def records_c2v(graph: LDPCGraph, records: torch.Tensor) -> torch.Tensor:
+    """[B, m, 2] records -> [B, D, m] c2v (masked edges 0), as ``_c2v``."""
+    return torch.stack([torch.where(graph.row_mask[:, d],
+                                    rebuild_c2v(records, d), 0.0)
+                        for d in range(graph.row_mask.shape[1])], dim=1)
 
 
 def _syndrome(graph: LDPCGraph, llr_total: torch.Tensor) -> torch.Tensor:

@@ -17,7 +17,8 @@ The bf16-message instantiation of the LDPC kernel against the plain
 decoder with ``msg_dtype=torch.bfloat16``: bits, ok flags, iteration
 counts and total LLRs equal on every lane at every rate, across the
 block-size rule, at max_iters {0, 1, 2}, with trap_escape, and on the
-lanes where bf16 messages change a lane's outcome; each launch counted by
+lanes where bf16 messages change a lane's outcome and at LLRs near +-3e38
+and +-1e-40; each launch counted by
 ``cuda_ldpc.launches_bf16`` and none by the float32 counter, also when a
 decode takes bf16 from the module default.
 
@@ -237,6 +238,26 @@ def test_bf16_kernel_where_bf16_changes_the_outcome(dev):
     f32 = T.decode_plain(graph, torch.from_numpy(llr))
     _, ok, iters = _assert_bf16_kernel_equals_plain(CodeRate.R1_2, llr, dev)
     assert not torch.equal(iters.cpu(), f32[2])
+
+
+def test_bf16_kernel_at_extreme_llrs(dev):
+    """LLRs near +-3e38 (their bf16 c2v near 2.25e38, totals that overflow
+    to +-inf) and near +-1e-40 (bf16 subnormals, the smallest rounding to
+    +-0): whole lanes of each, lanes mixing both with ordinary LLRs, and
+    ordinary lanes; lane-exact against the plain bf16 decoder."""
+    rng = np.random.default_rng(77)
+    llr = _noisy_llr(CodeRate.R1_2, 0.62, 512)
+    sign = np.where(llr < 0, -1.0, 1.0)
+    huge = sign * rng.uniform(2.9e38, 3.0e38, llr.shape)
+    tiny = sign * rng.uniform(0.0, 2e-40, llr.shape)
+    pick = rng.integers(0, 3, llr.shape)
+    mixed = np.where(pick == 1, huge, np.where(pick == 2, tiny, llr))
+    x = np.concatenate([huge[:128], tiny[128:256], mixed[256:384],
+                        llr[384:]]).astype(np.float32)
+    assert np.isfinite(x).all() and (np.abs(x[128:256]) < 2e-40).all()
+    _, ok, iters = _assert_bf16_kernel_equals_plain(CodeRate.R1_2, x, dev,
+                                                    max_iters=8)
+    assert bool((iters > 0).any())
 
 
 def test_bf16_default_decode_goes_through_the_bf16_kernel(dev):

@@ -4,7 +4,8 @@ the repo, on one card, at the shapes ``chip_smoke.py`` gives them.
 
     mkdir -p chip_checkout/base
     git archive <commit> | tar -x -C chip_checkout/base
-    python3 tools/torch_kernel_ab.py chip_checkout/base [--pairs 10]
+    python3 tools/torch_kernel_ab.py chip_checkout/base [--pairs 10] \
+        [--msg bf16|f32|both]
 
 The earlier checkout's port package is imported under another name
 (``earlier_port``), so each version runs through its own wrappers and
@@ -14,15 +15,26 @@ interface is copied here.  (A checkout from before the port kept its own
 host modules imports them from the JAX package, ``projectultra_tpu``,
 whose host modules import no jax.)
 
+``--msg`` picks the LDPC kernel's instantiations: float32 messages
+(``f32``, the default), bfloat16 ones (``bf16``) or ``both``.  The LDPC
+shapes: the presynced path's 17 dB LLRs and the sigma 0.62 waterfall
+(B = 16,384, blocks of 256 threads), an R1/4 sigma 1.1 trap-escape batch
+(B = 4,096), a Cox buffer's and the chirp cell's LLRs (B = 512 and 256,
+blocks of 1,024), one never-converging R1/4 codeword with its retry and
+one never-converging R1/2 codeword (B = 1, the engine's shapes).  ``--threads 256`` or ``1024`` makes both
+versions launch blocks of that size at every shape instead of their own
+``block_threads_for`` rule.
+
 At each shape the two versions' outputs are held equal first (LDPC:
 totals, ok flags and iterations; windows: rtol 2e-4, atol 2e-3), then
 timed in ``--pairs`` pairs of turns, earlier then current in even pairs
 and current then earlier in odd ones; a turn is the kernel's mean device
 time per launch under ``torch.profiler`` (``chip_smoke.device_ms``).  Each
 shape prints both medians, the range of the per-pair ratios, the pairs
-the current kernel won, its bound (as ``chip_smoke.py`` counts it) and
-each version's share of the bound.  The last line is a JSON object with
-every row.
+the current kernel won, its bound (as ``chip_smoke.py`` counts it), each
+version's share of the bound and, for LDPC, each version's registers per
+thread and spills (``ptxas -v`` of its build) and dynamic shared bytes per
+block.  The last line is a JSON object with every row.
 """
 
 from __future__ import annotations
@@ -31,6 +43,7 @@ import argparse
 import importlib
 import importlib.util
 import json
+import re
 import statistics
 import sys
 from pathlib import Path
@@ -41,11 +54,15 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as S  # noqa: E402
-from projectultra_tpu_torch.ops import cuda_ldpc, cuda_sc  # noqa: E402
+from projectultra_tpu_torch import CodeRate  # noqa: E402
+from projectultra_tpu_torch import ops as current_ops  # noqa: E402
+from projectultra_tpu_torch.ops import cuda_build, cuda_ldpc, cuda_sc  # noqa: E402,E501
 from projectultra_tpu_torch.ops import ldpc as ldpc_ops  # noqa: E402
 from projectultra_tpu_torch.sync import schmidl_cox as SC  # noqa: E402
 
 EARLIER = "earlier_port"
+MSG = {"f32": (torch.float32,), "bf16": (torch.bfloat16,),
+       "both": (torch.float32, torch.bfloat16)}
 
 
 def load_earlier(checkout: Path):
@@ -57,9 +74,42 @@ def load_earlier(checkout: Path):
     module = importlib.util.module_from_spec(spec)
     sys.modules[EARLIER] = module
     spec.loader.exec_module(module)
-    for name in ("ops.ldpc", "ops.cuda_ldpc", "ops.cuda_sc"):
+    for name in ("ops.ldpc", "ops.cuda_build", "ops.cuda_ldpc",
+                 "ops.cuda_sc"):
         importlib.import_module(f"{EARLIER}.{name}")
     return module
+
+
+def ptxas_usage(ops) -> dict:
+    """{(threads, bf16): (registers, spill store bytes, spill load bytes)}
+    of each LDPC kernel instantiation in the ``ptxas -v`` report of the
+    library that ``ops`` (a port's ``ops`` package) builds."""
+    lib = ops.cuda_build.build(ops.cuda_ldpc.SOURCE, ops.cuda_ldpc.FLAGS)
+    report = lib.with_name(f"{lib.stem}.ptxas.txt").read_text()
+    usage, key, spills = {}, None, (0, 0)
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            m = re.search(r"ldpc_minsum_kernelILi(\d+)ELb([01])E",
+                          entry.group(1))
+            key = (int(m.group(1)), m.group(2) == "1") if m else None
+            spills = (0, 0)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill:
+            spills = (int(spill.group(1)), int(spill.group(2)))
+        used = re.search(r"Used (\d+) registers", line)
+        if used and key is not None:
+            usage[key] = (int(used.group(1)), *spills)
+    return usage
+
+
+def shared_bytes(ops, graph, msg_dtype) -> int:
+    """A block's dynamic shared bytes; checkouts before the bf16 records
+    kept (2n + Dm) float32 words for both instantiations."""
+    if hasattr(ops.cuda_ldpc, "shared_bytes"):
+        return ops.cuda_ldpc.shared_bytes(graph, msg_dtype)
+    return (2 * graph.n + graph.D * graph.m) * 4
 
 
 def pairs_of_turns(earlier_fn, current_fn, pairs: int, reps: int,
@@ -90,29 +140,57 @@ def main() -> None:
     parser.add_argument("checkout", type=Path,
                         help="an unpacked earlier checkout of the repo")
     parser.add_argument("--pairs", type=int, default=10)
+    parser.add_argument("--msg", choices=sorted(MSG), default="f32",
+                        help="the LDPC kernel's message types to time")
+    parser.add_argument("--threads", type=int, choices=(256, 1024),
+                        help="LDPC block size for both versions (default: "
+                        "each version's block_threads_for)")
     args = parser.parse_args()
     card = S.card_line()
     print(f"card: {card}", flush=True)
     dev = S.require_cuda()
     old = load_earlier(args.checkout)
+    if args.threads:
+        for mod in (cuda_ldpc, old.ops.cuda_ldpc):
+            mod.block_threads_for = lambda B, sms: args.threads
+    usage = {"earlier": ptxas_usage(old.ops),
+             "current": ptxas_usage(current_ops)}
     rows = []
 
-    def ldpc_row(label, rate, llrs, reps):
+    def ldpc_row(label, rate, llrs, reps, trap_escape=False):
         llrs = llrs.contiguous()
         graph = ldpc_ops.graph_for(S.get_code(rate), dev)
         old_graph = old.ops.ldpc.graph_for(old.get_code(rate), dev)
-        new = cuda_ldpc.decode_cuda(graph, llrs)
-        ref = old.ops.cuda_ldpc.decode_cuda(old_graph, llrs)
-        torch.cuda.synchronize()
-        S.require(all(torch.equal(x, y) for x, y in zip(new, ref)),
-                  f"the two LDPC kernels disagree on {label}")
-        bound_ms, by, passes = S.ldpc_bound(graph, new[1], new[2])
-        earlier, current = pairs_of_turns(
-            lambda: old.ops.cuda_ldpc.decode_cuda(old_graph, llrs),
-            lambda: cuda_ldpc.decode_cuda(graph, llrs), args.pairs, reps,
-            "ldpc_minsum_kernel")
-        rows.append(row("ldpc_minsum", label, llrs.shape[0], earlier, current,
-                        bound_ms, by, mean_iterations_run=passes))
+        threads = cuda_ldpc.block_threads_for(llrs.shape[0],
+                                              cuda_build.sm_count(dev))
+        for dtype in MSG[args.msg]:
+            bf16 = dtype == torch.bfloat16
+            kw = {"trap_escape": trap_escape}
+            if bf16:  # (checkouts before the bf16 kernel take no msg_dtype)
+                kw["msg_dtype"] = dtype
+            new = cuda_ldpc.decode_cuda(graph, llrs, **kw)
+            ref = old.ops.cuda_ldpc.decode_cuda(old_graph, llrs, **kw)
+            torch.cuda.synchronize()
+            S.require(all(torch.equal(x, y) for x, y in zip(new, ref)),
+                      f"the two LDPC kernels disagree on {label} "
+                      f"({dtype})")
+            bound_ms, by, passes = S.ldpc_bound(
+                graph, S.ldpc_passes(graph, llrs, trap_escape,
+                                     msg_dtype=dtype))
+            earlier, current = pairs_of_turns(
+                lambda: old.ops.cuda_ldpc.decode_cuda(old_graph, llrs, **kw),
+                lambda: cuda_ldpc.decode_cuda(graph, llrs, **kw), args.pairs,
+                reps, "ldpc_minsum_kernel")
+            rows.append(row(
+                "ldpc_minsum_bf16" if bf16 else "ldpc_minsum",
+                label + (", trap_escape" if trap_escape else ""),
+                llrs.shape[0], earlier, current, bound_ms, by,
+                mean_iterations_run=passes, threads=threads,
+                registers_spills={k: u.get((threads, bf16))
+                                  for k, u in usage.items()},
+                shared_bytes={
+                    "earlier": shared_bytes(old.ops, old_graph, dtype),
+                    "current": shared_bytes(current_ops, graph, dtype)}))
 
     def sc_row(label, a, stride, offset, G, reps):
         new = cuda_sc.sc_windows_cuda(a, S.HALF, stride, offset, G)
@@ -137,6 +215,9 @@ def main() -> None:
     ldpc_row("R1/2 17 dB main path", S.RATE, deint, 20)
     wf = torch.from_numpy(S.waterfall_llrs(S.RATE, 0.62, S.BATCH)).to(dev)
     ldpc_row("R1/2 waterfall sigma=0.62", S.RATE, wf, 5)
+    r14 = torch.from_numpy(S.waterfall_llrs(CodeRate.R1_4, 1.1,
+                                            4096)).to(dev)
+    ldpc_row("R1/4 waterfall sigma=1.1", CodeRate.R1_4, r14, 5, True)
     _, tx = S.cox_tx(dev, 10)
     rx = S.noisy_buffers(tx, torch.Generator(device=dev).manual_seed(20),
                          1)[0]
@@ -148,6 +229,16 @@ def main() -> None:
     crx = S.noisy_buffers(ctx, torch.Generator(device=dev).manual_seed(35),
                           1, S.CHIRP_SNR_DB)[0]
     ldpc_row("R1/4 5 dB chirp cell", S.CHIRP_RATE, S.chirp_llrs(crx), 20)
+    _, ok14, _ = cuda_ldpc.decode_cuda(
+        ldpc_ops.graph_for(S.get_code(CodeRate.R1_4), dev), r14)
+    lane = int(torch.nonzero(~ok14)[0])
+    ldpc_row("R1/4 sigma=1.1, one unconverged codeword", CodeRate.R1_4,
+             r14[lane:lane + 1], 20, True)
+    _, okwf, _ = cuda_ldpc.decode_cuda(
+        ldpc_ops.graph_for(S.get_code(S.RATE), dev), wf)
+    lane = int(torch.nonzero(~okwf)[0])
+    ldpc_row("R1/2 sigma=0.62, one unconverged codeword", S.RATE,
+             wf[lane:lane + 1], 20)
 
     # Window sums on the Cox buffer's analytic signal, strides 8 and 1.
     a = SC.analytic_signal(rx)
@@ -156,7 +247,11 @@ def main() -> None:
                off, G, 50 if stride == 8 else 10)
 
     for r in rows:
-        print(f"{r['kernel']} [{r['shape']}, B={r['B']}]: earlier "
+        regs = "".join(
+            f", {who}: {u[0]} registers, spills {u[1]}/{u[2]} B, "
+            f"{r['shared_bytes'][who]} shared B"
+            for who, u in r.get("registers_spills", {}).items() if u)
+        print(f"{r['kernel']} [{r['shape']}, B={r['B']}{regs}]: earlier "
               f"{r['earlier_ms']!r} ms, current {r['ms']!r} ms (medians of "
               f"{r['pairs']} pairs; current/earlier per pair "
               f"{r['ratio_min']!r}-{r['ratio_max']!r}, current faster in "
