@@ -81,7 +81,9 @@ Phases:
    source, started together);
 3. holds the LDPC kernel against the plain PyTorch decoder on the card
    (bits, ok flags and iteration counts equal on every lane) on the golden
-   codewords of all five rates and on noisy waterfall batches;
+   codewords of all five rates and on noisy waterfall batches, and on
+   those batches with +-inf or NaN LLRs in every other lane
+   (``nonfinite_llrs``; totals equal too, NaN to NaN);
 4. holds TX on the card against the reference golden waveform;
 5. runs the slice-1 path: decode rate >= 0.99 with exact info bits on
    every decoded frame, the LDPC kernel's launch counter grown, and the
@@ -189,8 +191,10 @@ Phases:
     kernel's bf16 instantiation against the plain
     decoder with bf16 messages, lane-exact (bits, ok, iterations) on the
     main path's 17 dB LLRs (B = 16,384), the sigma 0.62 waterfall batch of
-    16,384, an R1/4 sigma 1.1 batch with trap_escape and a batch of LLRs
-    near +-3e38 and +-1e-40 (``extreme_llrs``), and its shared bytes per
+    16,384, an R1/4 sigma 1.1 batch with trap_escape, a batch of LLRs
+    near +-3e38 and +-1e-40 (``extreme_llrs``) and phase 3's batches with
+    +-inf and NaN LLRs (``nonfinite_llrs``, totals NaN-equal), and its
+    shared bytes per
     block beside the float32 one's (check-row records); its call ms
     beside the float32 kernel's at the first two (CUDA events, turns f32,
     bf16, bf16, f32) and its device ms against its bound at all three
@@ -440,8 +444,9 @@ def compare_decoders(rate: CodeRate, llrs: torch.Tensor, label: str,
     bits_eq = bool(((llr_k[:, :k] < 0) == (llr_p[:, :k] < 0)).all())
     ok_eq = bool((ok_k == ok_p).all())
     it_eq = bool((it_k == it_p).all())
-    err = float(torch.where(llr_k == llr_p, 0.0,
-                            (llr_k - llr_p).abs()).max())  # equal infs: 0
+    same = (llr_k == llr_p) | (torch.isnan(llr_k) & torch.isnan(llr_p))
+    err = float(torch.where(same, 0.0, (llr_k - llr_p).abs()).max())
+    # (equal infs and two NaNs: 0; a NaN against a number: NaN)
     if trap_escape:
         label += ", trap_escape"
     print(f"kernel vs plain [{label}] B={llrs.shape[0]}: bits_equal={bits_eq} "
@@ -566,17 +571,18 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, kernel: str, tries: int = 3) -> float:
+def device_ms(fn, reps: int, kernel: str, tries: int = 5) -> float:
     """Device milliseconds per launch of the kernels whose names hold
     ``kernel``, under ``torch.profiler`` over reps calls of fn (the kernel's
     own time, without the host's launch overhead): the mean over the
     launches the profiler recorded.  It can miss some of a run's device
-    events, or all of them; a run with none is repeated."""
+    events, or all of them (seen for 20 launches of a 5 us kernel); a run
+    with none is repeated with twice the calls."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    for t in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(reps << t):
                 fn()
             torch.cuda.synchronize()
         us = [e.time_range.end - e.time_range.start for e in prof.events()
@@ -679,6 +685,21 @@ def phase_kernel_parity(dev: torch.device) -> None:
             waterfall_llrs(rate, sigma, WATERFALL_BATCH)).to(dev)
         compare_decoders(rate, llrs,
                          f"waterfall {GOLDEN_NAMES[rate]} sigma={sigma}")
+    compare_nonfinite(dev, torch.float32)
+
+
+def compare_nonfinite(dev: torch.device, msg_dtype: torch.dtype) -> None:
+    """The kernel instantiation of ``msg_dtype`` against the plain decoder
+    on ``nonfinite_llrs`` at both waterfall points: decisions equal on
+    every lane and the totals equal, NaN to NaN."""
+    for rate, sigma in WATERFALL:
+        for kind in ("inf", "nan"):
+            llrs = torch.from_numpy(nonfinite_llrs(
+                rate, sigma, WATERFALL_BATCH, kind)).to(dev)
+            label = f"{kind} LLRs, waterfall {GOLDEN_NAMES[rate]} sigma={sigma}"
+            err = compare_decoders(rate, llrs, label, msg_dtype=msg_dtype)
+            require(err == 0.0, f"kernel totals differ from the plain "
+                    f"decoder's on {label}: {err!r}")
 
 
 def phase_tx_golden(dev: torch.device) -> None:
@@ -2817,6 +2838,29 @@ def extreme_llrs(B: int) -> np.ndarray:
                            llr[3 * q:]]).astype(np.float32)
 
 
+NAN_BITS = np.array([0x7FC00000, 0xFFC00000, 0xFFFFFFFF, 0x7F800001],
+                    np.uint32)  # quiet NaNs, all ones, a low-payload one
+
+
+def nonfinite_llrs(rate: CodeRate, sigma: float, B: int, kind: str,
+                   seed: int = 99) -> np.ndarray:
+    """``waterfall_llrs(rate, sigma, B)`` with 1-3 LLRs of every even lane
+    set to +-inf (``kind`` "inf"; +inf and -inf meeting in a total make a
+    NaN) or to NaN of the ``NAN_BITS`` patterns (``kind`` "nan"), as
+    tests/test_torch_cuda.py::nonfinite_llrs builds them."""
+    x = waterfall_llrs(rate, sigma, B)
+    rng = np.random.default_rng(seed)
+    for b in range(0, B, 2):
+        k = int(rng.integers(1, 4))
+        pos = rng.choice(x.shape[1], k, replace=False)
+        if kind == "inf":
+            x[b, pos] = np.where(rng.integers(0, 2, k) == 1, np.inf, -np.inf)
+        else:
+            x[b, pos] = NAN_BITS[rng.integers(0, len(NAN_BITS), k)] \
+                .view(np.float32)
+    return x
+
+
 def bf16_vs_f32_shape(label: str, llrs: torch.Tensor, card: str,
                       reps: int):
     """The two instantiations' call ms at one shape (CUDA events around
@@ -2937,6 +2981,7 @@ def phase_bf16(dev: torch.device, card: str, deint: torch.Tensor):
     compare_decoders(RATE, torch.from_numpy(extreme_llrs(
         WATERFALL_BATCH)).to(dev), "LLRs near +-3e38 and +-1e-40",
         msg_dtype=BF16)
+    compare_nonfinite(dev, BF16)
     print(f"LDPC shared bytes per block (R1/2): bf16 "
           f"{cuda_ldpc.shared_bytes(graph, BF16)}, float32 "
           f"{cuda_ldpc.shared_bytes(graph, torch.float32)}", flush=True)

@@ -61,6 +61,20 @@
 //
 // Floating point: the file is compiled with --fmad=false, so no multiply
 // is contracted into an add; the additions run in the order written.
+// NaN and infinity go through as the JAX decoder computes them op by op
+// (jnp.clip, jnp.minimum): the v2c clamp and min2 keep a NaN (PTX
+// min.NaN/max.NaN, where fminf/fmaxf would drop it), +-inf clamps to
+// +-50, and a NaN is neither negative nor a new min1 (its comparisons are
+// false).  A NaN reaches the decoder as an LLR (the demappers' clip_llr
+// passes one through) or is made where +inf and -inf meet in a sum.
+// A row's slots beyond its degree hold +inf, which the two-minima update
+// never takes (JAX masks them the same way), so that loop runs all K
+// slots without a branch: the min.NaN/max.NaN asm cannot be predicated,
+// and behind a `d < deg` test it costs branches and moves (2% at 1,024
+// threads on an H100; branch-free, every shape is faster than with
+// fminf/fmaxf).  __launch_bounds__ asks for 2,048 threads per SM (8
+// blocks of 256, 2 of 1,024), which holds both instantiations at 32
+// registers: without it the branch-free float32 loop took 39 at 256.
 //
 // bfloat16 messages (the JAX decoder's msg_dtype=bfloat16 fast mode, an
 // XLA decode there, not a Pallas one): the RECORDS instantiation.  Each v2c
@@ -92,15 +106,14 @@
 // and on the small batches; so a warp of degree-1 variables takes its one
 // edge directly and the others loop, and the c2v sign goes into the 0.75
 // factor (one dependent operation less per edge).  Tried and measured
-// slower, so not kept: __launch_bounds__ minimum blocks (32 registers, but
+// slower, so not kept: __launch_bounds__ minimum blocks on the records
+// design before its two-minima loop was branch-free (32 registers, but
 // slower B = 1 and stuck-lane batches at 1,024 threads), the preload split
 // 3 + 2 (32 registers, but slower on the waterfall and at B = 1 R1/4), the
 // loop in batches of 2 or 3 loads (38-40 registers), the loop without
 // unrolling, the row pass rebuilding per slot from the record word instead
 // of its two scaled minima, and the LLR rows copied in and out with one
 // TMA bulk copy (cp.async.bulk and an mbarrier) instead of 16-byte loads.
-// The float32 instantiation compiles to the same code as before (if
-// constexpr).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -112,12 +125,34 @@ constexpr int kMaxDegree = 7;    // check degree bound (the codes have D = 7)
 constexpr float kScale = 0.75f;  // MIN_SUM_SCALE
 constexpr float kClamp = 50.0f;  // V2C_CLAMP
 
+// min and max that return NaN when either operand is NaN (the canonical
+// NaN, 0x7fffffff), as jnp.minimum/torch.minimum do; one instruction each,
+// as fminf/fmaxf are.
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// v2c = clip(x, -50, 50) as jnp.clip: NaN stays NaN, +-inf -> +-50, -0
+// stays -0.
+__device__ __forceinline__ float clamp_v2c(float x) {
+  return min_nan(max_nan(x, -kClamp), kClamp);
+}
+
 // ---------------------------------------------------------------------------
 // float32 messages: D c2v values per check row, d-major
 // ---------------------------------------------------------------------------
 
 // Check-row pass for row i, unrolled for K >= deg slots.  Reads the row's
-// v2c (first: the channel LLRs; later: clamp(llr_total[var] - c2v)), writes
+// v2c (first: the channel LLRs; later: clamp(llr_total[var] - c2v); +inf
+// on the slots beyond deg, which the two-minima update ignores), writes
 // the row's new c2v into msg (d-major: edge (i, d) at d*m + i) when
 // `update` is set, and returns whether the row is unsatisfied: by the hard
 // decision of llr_total when `check` is set, else (first) by the hard
@@ -140,10 +175,11 @@ __device__ __forceinline__ bool row_pass(
         if (first) {
           v[d] = llr_in[var];
         } else {
-          const float x = __fsub_rn(llr_tot[var], msg[d * m + i]);
-          v[d] = fminf(fmaxf(x, -kClamp), kClamp);
+          v[d] = clamp_v2c(__fsub_rn(llr_tot[var], msg[d * m + i]));
         }
       }
+    } else {
+      v[d] = __int_as_float(0x7f800000);
     }
   }
   if (update) {
@@ -152,16 +188,14 @@ __device__ __forceinline__ bool row_pass(
     int amin = 0, par = 0, negs = 0;
 #pragma unroll
     for (int d = 0; d < K; ++d) {
-      if (d < deg) {
-        const float a = fabsf(v[d]);
-        const int neg = v[d] < 0.0f ? 1 : 0;
-        negs |= neg << d;
-        par ^= neg;
-        const bool is_new = a < min1;
-        min2 = is_new ? min1 : (a < min2 ? a : min2);
-        amin = is_new ? d : amin;
-        min1 = is_new ? a : min1;
-      }
+      const float a = fabsf(v[d]);
+      const int neg = v[d] < 0.0f ? 1 : 0;
+      negs |= neg << d;
+      par ^= neg;
+      const bool is_new = a < min1;
+      min2 = is_new ? min1 : min_nan(min2, a);  // NaN a: min2 NaN
+      amin = is_new ? d : amin;
+      min1 = is_new ? a : min1;
     }
 #pragma unroll
     for (int d = 0; d < K; ++d) {
@@ -219,6 +253,12 @@ __device__ __forceinline__ void var_pass(
 // The row's c2v on slot d is (sign_d * (d == amin ? min2 : min1)) * 0.75;
 // y << d holds slot d's sign in bit 31 and d == amin in bit 24, so the
 // slot is spent in one shift.
+// NaN: min1 is never NaN (a NaN is never below it), min2 may be.  Every
+// |v2c| the row pass compares is a bf16 value read back (low 16 bits
+// zero; a NaN one is __float2bfloat16_rn's canonical 0x7fff), and a NaN
+// min2 comes from min.NaN as the canonical 0x7fffffff; either way its top
+// 16 bits are a bf16 NaN (0x7fff), which the passes rebuild into a NaN
+// c2v (NaN * +-0.75).
 
 // A v2c value rounded to bfloat16, nearest-even, and read back.
 __device__ __forceinline__ float bf16_round(float x) {
@@ -269,10 +309,11 @@ __device__ __forceinline__ bool row_pass_records(
           const unsigned t = meta << d;
           const float c = __uint_as_float(
               __float_as_uint((t & kAminBit) ? c2 : c1) | (t & kSignBit));
-          const float x = __fsub_rn(llr_tot[var], c);
-          v[d] = bf16_round(fminf(fmaxf(x, -kClamp), kClamp));
+          v[d] = bf16_round(clamp_v2c(__fsub_rn(llr_tot[var], c)));
         }
       }
+    } else {
+      v[d] = __int_as_float(0x7f800000);
     }
   }
   if (update) {
@@ -282,18 +323,17 @@ __device__ __forceinline__ bool row_pass_records(
     unsigned negs = 0;
 #pragma unroll
     for (int d = 0; d < K; ++d) {
-      if (d < deg) {
-        const float a = fabsf(v[d]);
-        const int neg = v[d] < 0.0f ? 1 : 0;
-        negs |= (unsigned)neg << (31 - d);
-        par ^= neg;
-        const bool is_new = a < min1;
-        min2 = is_new ? min1 : (a < min2 ? a : min2);
-        amin = is_new ? d : amin;
-        min1 = is_new ? a : min1;
-      }
+      const float a = fabsf(v[d]);
+      const int neg = v[d] < 0.0f ? 1 : 0;
+      negs |= (unsigned)neg << (31 - d);
+      par ^= neg;
+      const bool is_new = a < min1;
+      min2 = is_new ? min1 : min_nan(min2, a);  // NaN a: min2 NaN
+      amin = is_new ? d : amin;
+      min1 = is_new ? a : min1;
     }
     // c2v's sign on slot d is par ^ neg_d: flip the row's deg sign bits.
+    // min2 >> 16 is its bf16 bits (a NaN min2: 0x7fff, see above).
     const unsigned flip = par ? ~(0xffffffffu >> deg) : 0u;
     rec[i] = make_uint2(__float_as_uint(min1) | (__float_as_uint(min2) >> 16),
                         (negs ^ flip) | (kAminBit >> amin));
@@ -387,7 +427,7 @@ __device__ __forceinline__ void var_pass_of(
 // RECORDS: bfloat16 messages kept as check-row records, and var_edges is
 // the (row << 3 | slot) table; else float32 c2v and d-major edge indices.
 template <int BLOCK, bool RECORDS>
-__global__ void __launch_bounds__(BLOCK) ldpc_minsum_kernel(
+__global__ void __launch_bounds__(BLOCK, 2048 / BLOCK) ldpc_minsum_kernel(
     const float* __restrict__ llr, const int* __restrict__ row_vars,
     const int* __restrict__ row_deg, const int* __restrict__ var_edges,
     const int* __restrict__ var_deg, float* __restrict__ llr_out, uint8_t* __restrict__ ok_out,

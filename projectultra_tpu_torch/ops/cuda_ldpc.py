@@ -4,8 +4,9 @@
 The source is built at first use by ``cuda_build``:
 ``nvcc`` for ``sm_90a`` into a plain-C shared library loaded with
 ``ctypes``, compiled with ``--fmad=false`` so that the kernel's additions
-round exactly as the plain decoder's.  A failed build raises; nothing falls
-back to the plain PyTorch decoder.
+round exactly as the plain decoder's; its clamp and min2 keep a NaN as the
+plain decoder's do.  A failed build raises; nothing falls back to the
+plain PyTorch decoder.
 
 The kernel launches on PyTorch's current stream, does not synchronise and
 allocates nothing: this wrapper allocates the outputs with ``torch.empty``.

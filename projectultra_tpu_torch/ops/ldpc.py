@@ -20,6 +20,9 @@ iteration counts agree lane for lane):
   variable's edges in ascending check order (``_var_edge_table``);
 * iteration counts: 0-based iteration of convergence, else ``max_iters``;
   converged lanes are frozen;
+* NaN and infinity as the JAX decoder computes them op by op: the clamp
+  and min2 keep a NaN (``torch.clamp``, ``torch.minimum``), +-inf clamps
+  to +-50, and a NaN is neither negative nor a new min1;
 * ``msg_dtype=torch.bfloat16`` (the fast mode): every v2c message is
   rounded to bfloat16 (nearest, ties to even) where it is made -- the
   channel LLRs of iteration 0 and each clamped later message -- and read
@@ -222,7 +225,8 @@ def _c2v(graph: LDPCGraph, v2c: torch.Tensor) -> torch.Tensor:
 # tests (no decode runs it): two int64 words per row holding the record's
 # 32-bit words, x = min1's bf16 bits << 16 | min2's, y = bit 31 - d set
 # where the row's c2v on slot d is negative and bit 24 - amin set, amin the
-# slot of min1.
+# slot of min1.  min1 is never NaN; a NaN min2 is stored as the kernel
+# stores it, 0x7fff, and rebuilds to a NaN c2v.
 
 def pack_records(graph: LDPCGraph, v2c: torch.Tensor) -> torch.Tensor:
     """[B, D, m] bf16-valued v2c (bf16 messages read back as float32) ->
@@ -233,7 +237,8 @@ def pack_records(graph: LDPCGraph, v2c: torch.Tensor) -> torch.Tensor:
         sign |= (graph.row_mask[:, d] & ((par ^ neg) == 1)).long() << (31 - d)
 
     def bits(x):
-        return x.to(torch.bfloat16).view(torch.int16).long() & 0xFFFF
+        b = x.to(torch.bfloat16).view(torch.int16).long() & 0xFFFF
+        return torch.where(torch.isnan(x), 0x7FFF, b)
 
     return torch.stack([(bits(min1) << 16) | bits(min2),
                         sign | (0x01000000 >> amin.long())], dim=-1)

@@ -11,7 +11,9 @@ B in {1, 3, 131, 256, 513, 4,096} at all five rates, both block sizes,
 lanes whose channel decisions already satisfy every check beside lanes
 that iterate, max_iters {0, 1, 2, 50}, trap_escape, a misaligned view,
 and the whole frame pipeline on the card against the same pipeline on
-the CPU.
+the CPU.  Both instantiations on LLRs with +-inf and NaN (R1/2 and R1/4,
+both block sizes, with and without trap_escape): decisions equal on every
+lane and totals equal, NaN to NaN.
 
 The bf16-message instantiation of the LDPC kernel against the plain
 decoder with ``msg_dtype=torch.bfloat16``: bits, ok flags, iteration
@@ -258,6 +260,76 @@ def test_bf16_kernel_at_extreme_llrs(dev):
     _, ok, iters = _assert_bf16_kernel_equals_plain(CodeRate.R1_2, x, dev,
                                                     max_iters=8)
     assert bool((iters > 0).any())
+
+
+#: The batches of ``nonfinite_llrs``: the waterfall points of R1/2 and R1/4.
+NONFINITE = [(CodeRate.R1_2, 0.62), (CodeRate.R1_4, 1.1)]
+#: NaN bit patterns a poisoned LLR takes: quiet NaNs of both signs, the
+#: all-ones one and a signalling one whose payload lies in the low 16 bits
+#: only (a bf16 rounding that truncated it would make it inf).
+NAN_BITS = np.array([0x7FC00000, 0xFFC00000, 0xFFFFFFFF, 0x7F800001],
+                    np.uint32)
+
+
+def nonfinite_llrs(rate, sigma, B, kind, seed=99):
+    """The waterfall batch ``_noisy_llr(rate, sigma, B)`` with 1-3 LLRs of
+    every even lane set to +-inf (``kind`` "inf": +inf and -inf can meet
+    in a variable's total, which is then NaN) or to NaN (``kind`` "nan",
+    each of a pattern of ``NAN_BITS``); odd lanes as drawn."""
+    x = _noisy_llr(rate, sigma, B)
+    rng = np.random.default_rng(seed)
+    for b in range(0, B, 2):
+        k = int(rng.integers(1, 4))
+        pos = rng.choice(x.shape[1], k, replace=False)
+        if kind == "inf":
+            x[b, pos] = np.where(rng.integers(0, 2, k) == 1, np.inf, -np.inf)
+        else:
+            x[b, pos] = NAN_BITS[rng.integers(0, len(NAN_BITS), k)] \
+                .view(np.float32)
+    return x
+
+
+def lanes_that_differ(k, got, want):
+    """(lanes whose bits, ok flag or iterations differ, lanes whose
+    totals differ), each a bool [B]; a NaN total equals a NaN total."""
+    (ta, oa, ia), (tb, ob, ib) = got, want
+    decisions = (((ta[:, :k] < 0) != (tb[:, :k] < 0)).any(1) | (oa != ob)
+                 | (ia != ib))
+    same = (ta == tb) | (torch.isnan(ta) & torch.isnan(tb))
+    return decisions, ~same.all(1)
+
+
+@pytest.mark.parametrize("trap_escape", [False, True])
+@pytest.mark.parametrize("threads", [256, 1024])
+@pytest.mark.parametrize("msg", ["f32", "bf16"])
+def test_kernels_at_nonfinite_llrs(dev, monkeypatch, msg, threads,
+                                   trap_escape):
+    """Both instantiations on LLRs with +-inf and NaN (``nonfinite_llrs``,
+    B = 256 at R1/2 and R1/4): bits, ok flags and iterations equal to the
+    plain decoder on every lane, and the totals equal, NaN to NaN -- the
+    v2c clamp and min2 keep a NaN, as jnp.clip/jnp.minimum do."""
+    monkeypatch.setattr(cuda_ldpc, "block_threads_for", lambda B, sms: threads)
+    dtype = torch.bfloat16 if msg == "bf16" else torch.float32
+    counter = "launches_bf16" if msg == "bf16" else "launches"
+    report, nan_totals = {}, 0
+    for rate, sigma in NONFINITE:
+        graph = T.graph_for(ldpc.get_code(rate), dev)
+        for kind in ("inf", "nan"):
+            x = torch.from_numpy(nonfinite_llrs(rate, sigma, 256, kind)).to(dev)
+            before = getattr(cuda_ldpc, counter)
+            got = cuda_ldpc.decode_cuda(graph, x, trap_escape=trap_escape,
+                                        msg_dtype=dtype)
+            assert getattr(cuda_ldpc, counter) > before
+            want = T.decode_plain(graph, x, trap_escape=trap_escape,
+                                  msg_dtype=dtype)
+            decisions, totals = lanes_that_differ(graph.k, got, want)
+            report[f"{NAMES[rate]} {kind}"] = (int(decisions.sum()),
+                                               int(totals.sum()))
+            nan_totals += int(torch.isnan(want[0]).any(1).sum())
+    assert nan_totals > 0
+    assert all(v == (0, 0) for v in report.values()), (
+        f"lanes of 256 that differ from the plain decoder (decisions, "
+        f"totals): {report}")
 
 
 def test_bf16_default_decode_goes_through_the_bf16_kernel(dev):

@@ -7,7 +7,10 @@ of min1 and the c2v sign bits instead of D float32 c2v values, and rebuilds
 each c2v where a pass reads it.  These tests hold that record to the plain
 decoder's c2v bit for bit:
 
-* every bf16 bit pattern but NaN, as min1 and as min2, with both signs;
+* every bf16 bit pattern, as min1 and as min2, with both signs (a NaN is
+  never min1; a NaN min2 is stored as 0x7fff and rebuilds to a NaN c2v
+  where ``_c2v`` gives one: NaN equals NaN, every other value bit for
+  bit), and rows where a NaN is min2 and where a later minimum drops it;
 * the bf16 v2c messages of every iteration of a decode at each of the five
   rates' waterfall batches (numpy-seeded), a decode whose bits, ok flags
   and iterations equal JAX ``decode(msg_dtype=jnp.bfloat16)``;
@@ -61,6 +64,12 @@ def _bits(x):
     return x.contiguous().view(torch.int32)
 
 
+def _assert_bit_equal_or_both_nan(got, want):
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(_bits(got)[~nan], _bits(want)[~nan])
+
+
 def _round_trip(graph, v2c):
     return T.records_c2v(graph, T.pack_records(graph, v2c))
 
@@ -82,25 +91,50 @@ class _Rows:
 
 
 def test_every_bf16_pattern_rebuilds_bit_equal():
-    """Each non-NaN bf16 value x in rows (x, y): y = +-inf leaves |x| as
-    min1, y = +-0 makes it min2, and the signs of y flip the c2v's; plus
-    random rows of seven such values."""
+    """Each bf16 value x in rows (x, y): y = +-inf leaves |x| as min1
+    (a NaN x: min2, NaN), y = +-0 makes it min2 (a NaN x: dropped), and the
+    signs of y flip the c2v's; plus random rows of seven such values.  A
+    NaN c2v rebuilds to NaN (its payload is the record's), every other
+    one bit for bit."""
     pats = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(torch.int16)
     x = pats.view(BF16).to(torch.float32)
-    x = x[~torch.isnan(x)]
-    assert x.numel() == 2 ** 16 - 254
+    assert x.numel() == 2 ** 16 and int(torch.isnan(x).sum()) == 254
     ys = torch.tensor([float("inf"), -float("inf"), 0.0, -0.0, 1.0, -1.0])
     rows = torch.stack([x.repeat(len(ys)), ys.repeat_interleave(x.numel())])
     graph = _Rows(rows.shape[1], 2)
     v2c = rows[None]
     want = T._c2v(graph, v2c)
-    assert torch.equal(_bits(_round_trip(graph, v2c)), _bits(want))
+    assert bool(torch.isnan(want).any())
+    _assert_bit_equal_or_both_nan(_round_trip(graph, v2c), want)
 
     rng = np.random.default_rng(7)
     v2c7 = x[torch.from_numpy(rng.integers(0, x.numel(), (3, 7, 4096)))]
     graph7 = _Rows(4096, 7)
-    assert torch.equal(_bits(_round_trip(graph7, v2c7)),
-                       _bits(T._c2v(graph7, v2c7)))
+    _assert_bit_equal_or_both_nan(_round_trip(graph7, v2c7),
+                                  T._c2v(graph7, v2c7))
+
+
+def test_nan_min2_and_dropped_nan_rebuild_as_c2v():
+    """Rows of three slots: a NaN after min1 becomes min2 and stays it
+    (the argmin slot's c2v is NaN, min2's bits 0x7fff); a NaN before two
+    new minima is dropped (no NaN c2v); a NaN after a later minimum is
+    min2 again; NaN on every slot leaves min1 inf, its slot 0 (no new
+    minimum) and min2 NaN."""
+    nan, inf = float("nan"), float("inf")
+    rows = torch.tensor([[1.0, nan, 2.0],      # min1 1, min2 NaN
+                         [nan, 1.0, 0.5],      # the NaN dropped
+                         [-0.5, 4.0, nan],     # min1 0.5, min2 NaN
+                         [nan, nan, nan]])     # min1 inf, min2 NaN
+    graph = _Rows(4, 3)
+    v2c = rows.T[None]                         # [1, D, m]
+    want = T._c2v(graph, v2c)[0].T             # [m, D]
+    nan_at = torch.tensor([[True, False, False], [False] * 3,
+                           [True, False, False], [True, False, False]])
+    assert torch.equal(torch.isnan(want), nan_at)
+    records = T.pack_records(graph, v2c)[0]
+    assert [int(r) & 0xFFFF for r in records[:, 0]] == [0x7FFF, 0x3F80,
+                                                        0x7FFF, 0x7FFF]
+    _assert_bit_equal_or_both_nan(_round_trip(graph, v2c)[0].T, want)
 
 
 @pytest.mark.parametrize("rate", RATES)

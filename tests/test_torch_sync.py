@@ -7,7 +7,9 @@ with JAX's noise and CFO.  Tolerances:
 * analytic signal and harness CFO: max abs difference <= 1e-5 of the peak
   (float32 FFTs of pocketfft and PyTorch's CPU FFT differ by ulps);
   osc_traced atol 1e-6;
-* window sums: rtol 1e-5 against JAX's _window_sum; the plain
+* window sums: rtol 1e-5 against JAX's _window_sum (at an infinite
+  sample: the same infs; JAX's NaN where its block suffix is inf - inf,
+  the port finite there); the plain
   sc_windows against the Pallas kernel in interpret mode and the
   _window_sum references at rtol 2e-4, atol 2e-3, the tolerance of
   tests/test_pallas_sync.py;
@@ -154,6 +156,34 @@ def test_window_sum_long_buffer_precision():
     bad = (c[w:] - c[:T - w + 1]).astype(np.float64)
     bad_rel = np.abs(bad - exact) / np.maximum(exact, 1e-9)
     assert bad_rel.max() > rel.max() * 10
+
+
+def test_window_sum_at_an_infinite_sample():
+    """One inf sample at 1,000 of 4,096, w = 256: the port's window sums
+    are inf for exactly the 256 windows that hold it (starts 745-1,000).
+    JAX's _window_sum takes a block's suffix as its total less a prefix,
+    inf - inf, so it also gives NaN for the 23 windows that start after the
+    sample in its block (1,001-1,023) -- a reference behaviour (ROADMAP
+    Queue 3), not one the port copies.  Elsewhere both equal."""
+    x = np.random.default_rng(3).standard_normal((1, 4096)).astype(np.float32)
+    x[0, 1000] = np.inf
+    w = 256
+    ref = np.asarray(JSC._window_sum(jnp.asarray(x), w))[0]
+    ours = TSC._window_sum(_t(x), w).numpy()[0]
+    holds = np.zeros(4096 - w + 1, bool)
+    holds[1000 - w + 1:1001] = True
+    assert holds.sum() == 256
+    np.testing.assert_array_equal(np.isposinf(ours), holds)
+    assert np.isfinite(ours[~holds]).all()
+    np.testing.assert_array_equal(np.isposinf(ref), holds)
+    np.testing.assert_array_equal(np.flatnonzero(np.isnan(ref)),
+                                  np.arange(1001, 1024))
+    exact = np.convolve(np.where(np.isinf(x[0]), 0.0, x[0]).astype(
+        np.float64), np.ones(w), mode="valid")
+    np.testing.assert_allclose(ours[~holds], exact[~holds], rtol=1e-5,
+                               atol=1e-4)
+    live = np.isfinite(ref)
+    np.testing.assert_allclose(ours[live], ref[live], rtol=1e-5, atol=1e-4)
 
 
 def _analytic(T, seed=0):
