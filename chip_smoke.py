@@ -93,8 +93,14 @@ Phases:
 6. holds the Schmidl-Cox window kernel against its plain version at
    stride 1 and 8 (rtol 2e-4, atol 2e-3) on random analytic signals and on
    Cox buffers, and on one 600,000-sample buffer against float64 (relative
-   error < 1e-4); detection through the kernel against detection through
-   the plain version (found and lts_start identical on every lane);
+   error < 1e-4); at one +inf or NaN sample in the Cox buffer and in an
+   engine-shaped B = 1 view (strides 1 and 8, half 256 and 512: non-finite
+   at exactly the plain version's outputs, of the same kind); on a B = 1
+   row of 4,000,000 samples, where every block walks several work items
+   (each comparison prints the launch's plan: tile, items, blocks, ring
+   stages, shared bytes); detection through the kernel against detection
+   through the plain version (found and lts_start identical on every
+   lane);
 7. runs the Cox path: ok rate >= 0.99 with exact info bits on ok lanes
    over 32 buffers, both kernels' launch counters grown, a 30 Hz CFO
    buffer at 20 dB by the same gate, and 64 lanes equal to the CPU path;
@@ -876,9 +882,87 @@ def compare_windows(a: torch.Tensor, stride: int, offset: int, G: int,
                 f"window kernel {name} disagrees with plain on {label}")
     print(f"window kernel vs plain [{label}] B={a.shape[0]} T={a.shape[1]} "
           f"half={half} stride={stride} G={G}: max_abs_err P/R1/R2={errs!r} "
-          f"max_rel_err={rels!r} (rtol {WINDOW_RTOL}, atol {WINDOW_ATOL})",
-          flush=True)
+          f"max_rel_err={rels!r} (rtol {WINDOW_RTOL}, atol {WINDOW_ATOL}); "
+          f"launch {plan_line(a, half, stride, offset, G)}", flush=True)
     return max(errs)
+
+
+def plan_line(a: torch.Tensor, half: int, stride: int, offset: int,
+              G: int) -> str:
+    """The window kernel's launch at these sizes, as a line."""
+    plan = cuda_sc.launch_plan(a.shape[0], a.shape[1], half, stride, offset,
+                               G, a.device)
+    return ("{tile} outputs an item, {items} items on {blocks} blocks, "
+            "{stages} stages, {shared_bytes} shared B a block".format(**plan))
+
+
+# One non-finite sample (lane, sample) in the buffers of
+# tests/test_torch_cuda.py::test_window_kernel_at_a_nonfinite_sample.
+NONFINITE_SAMPLES = {"cox": (300, 3828), "engine": (0, 100000)}
+NONFINITE_VALUES = {"inf": complex(float("inf"), 0.0),
+                    "nan": complex(float("nan"), 0.0)}
+
+
+def compare_nonfinite_windows(a: torch.Tensor, half: int, stride: int,
+                              offset: int, G: int, label: str) -> None:
+    """Kernel vs plain window sums on a signal holding a non-finite sample:
+    each real part of P, R1 and R2 NaN, +inf and -inf at exactly the plain
+    version's outputs, within rtol 2e-4, atol 2e-3 elsewhere."""
+    got = cuda_sc.sc_windows_cuda(a, half, stride, offset, G)
+    want = sc_windows_plain(a, half, stride, offset, G)
+    torch.cuda.synchronize()
+    counts, errs = [], []
+    for x, y, name in zip(got, want, ("P", "R1", "R2")):
+        for xp, yp, part in (((x.real, y.real, name + ".re"),
+                              (x.imag, y.imag, name + ".im"))
+                             if y.is_complex() else ((x, y, name),)):
+            bad = ~torch.isfinite(yp)
+            require(bool(bad.any()), f"{label}: the sample reached no {part}")
+            for test in (torch.isnan, torch.isposinf, torch.isneginf):
+                require(torch.equal(test(xp), test(yp)),
+                        f"window kernel {part} differs from plain in "
+                        f"{test.__name__} on {label}")
+            require(bool(torch.isclose(xp[~bad], yp[~bad], rtol=WINDOW_RTOL,
+                                       atol=WINDOW_ATOL).all()),
+                    f"window kernel {part} disagrees with plain on {label}")
+            counts.append(int(bad.sum()))
+            errs.append(float((xp[~bad] - yp[~bad]).abs().max()))
+    print(f"window kernel vs plain [{label}] half={half} stride={stride} "
+          f"G={G}: non-finite outputs P.re/P.im/R1/R2={counts} (same places "
+          f"and kinds), max_abs_err elsewhere={errs!r}", flush=True)
+
+
+def phase_window_nonfinite(dev: torch.device, rx: torch.Tensor) -> None:
+    """The window kernel against its plain version at one +inf or NaN
+    sample, in the Cox buffer's analytic signal (B = 512, T = 18,856) and
+    in an engine-shaped search view of noise (B = 1, T = 262,144), at
+    strides 1 and 8 and half 256 and 512; then B = 1 rows long enough that
+    every block walks several work items through its ring."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    view = torch.randn((1, ModemEngine.ACQ_VIEW_CAP), generator=g,
+                       device=dev)
+    for name, buf in (("cox", rx), ("engine", view)):
+        lane, t = NONFINITE_SAMPLES[name]
+        for kind, value in NONFINITE_VALUES.items():
+            a = SC.analytic_signal(buf)
+            a[lane, t] = value
+            T = a.shape[1]
+            for half, offset in ((256, CP), (512, NVIS_CFG.cyclic_prefix)):
+                for stride in (1, 8):
+                    G = (T - 2 * half - offset) // stride + 1
+                    compare_nonfinite_windows(
+                        a, half, stride, offset, G,
+                        f"{name} B={a.shape[0]} T={T}, {kind} at lane "
+                        f"{lane} sample {t}")
+    T = 4_000_000
+    a = SC.analytic_signal(torch.randn((1, T), generator=g, device=dev))
+    for stride in (8, 1):
+        G = (T - 2 * HALF - CP) // stride + 1
+        plan = cuda_sc.launch_plan(1, T, HALF, stride, CP, G, dev)
+        require(plan["items"] >= 2 * plan["blocks"],
+                f"a B = 1 row of {T} gives {plan} (blocks walk one item)")
+        compare_windows(a, stride, CP, G, "B = 1 83 s row, many items a "
+                        "block")
 
 
 def phase_window_parity(dev: torch.device, rx: torch.Tensor) -> float:
@@ -3410,6 +3494,7 @@ def main() -> None:
     _, tx = cox_tx(dev, 10)
     rx = noisy_buffers(tx, torch.Generator(device=dev).manual_seed(20), 1)[0]
     sc_err = phase_window_parity(dev, rx)
+    phase_window_nonfinite(dev, rx)
     phase_detection_parity(dev, rx)
     cox_launches = phase_cox_path(dev)
     sc_ms, sc_plain_ms, sc_bound_ms, sc_by = phase_cox_timing(dev, card)

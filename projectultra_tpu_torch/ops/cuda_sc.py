@@ -13,8 +13,12 @@ PyTorch's current stream, does not synchronise and allocates nothing: this
 wrapper allocates the outputs with ``torch.empty``.  ``launches`` counts
 the kernel launches made through ``sc_windows_cuda``.  Rows the kernel
 cannot read as 16-byte pairs of samples (an odd row stride, an unaligned
-base) are first copied into rows of even length.  Each block computes
-512 outputs of one row.
+base) are first copied into rows of even length.
+
+The kernel's blocks are persistent: each walks work items of ``tile``
+outputs of one row (``tile_for``), staging each item's samples in shared
+memory; ``launch_plan`` says what a launch at given sizes runs (tile,
+items, blocks, ring stages, shared bytes a block).
 """
 
 from __future__ import annotations
@@ -37,9 +41,12 @@ launches = 0
 
 def _bind(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.sc_windows_launch.argtypes = [vp, ctypes.c_longlong] + [ci] * 6 \
+    lib.sc_windows_launch.argtypes = [vp, ctypes.c_longlong] + [ci] * 8 \
         + [vp] * 4
     lib.sc_windows_launch.restype = ci
+    lib.sc_windows_plan.argtypes = [ci] * 8 + [ctypes.POINTER(
+        ctypes.c_longlong)]
+    lib.sc_windows_plan.restype = ci
     lib.sc_windows_error_string.argtypes = [ci]
     lib.sc_windows_error_string.restype = ctypes.c_char_p
 
@@ -60,6 +67,53 @@ def load_library() -> ctypes.CDLL:
 #: Strides the kernel supports: 1, or an even power of two whose stride/2
 #: threads per block partial fit in a warp.
 STRIDES = (1, 2, 4, 8, 16, 32, 64)
+
+
+#: Outputs a work item covers: up to MAX_TILE when B rows of such tiles
+#: give two items an SM, else up to MIN_TILE; never so many that a stage
+#: of samples passes STAGE_BYTES (three blocks of two stages an SM).
+MAX_TILE, MIN_TILE = 512, 128
+STAGE_BYTES = 34 * 1024
+
+
+def stage_samples(tile: int, half: int, stride: int) -> int:
+    """Samples one stage of the kernel's ring holds for a tile: the span
+    stride * (tile - 1) + 2 * half from an even sample at or below its
+    first, rounded to pairs, and one spare pair (``layout`` in the
+    source)."""
+    return (1 + stride * (tile - 1) + 2 * half + 1) // 2 * 2 + 2
+
+
+def tile_for(B: int, G: int, half: int, stride: int, sms: int) -> int:
+    """Outputs per work item for B rows of G outputs on a card of ``sms``
+    SMs: tiles of up to MAX_TILE outputs if the B rows of them give two
+    items an SM, else of up to MIN_TILE; at most as many as keep a stage
+    within STAGE_BYTES (at least 4); the tiles of a row as equal as
+    multiples of 4 allow."""
+    limit = MAX_TILE if B * -(-G // MAX_TILE) >= 2 * sms else MIN_TILE
+    # stage_samples(t) <= stride * (t - 1) + 2 * half + 4
+    fits = (STAGE_BYTES // 8 - 2 * half - 4) // stride + 1
+    limit = max(4, min(limit, fits // 4 * 4))
+    per_row = -(-G // limit)
+    return min(limit, 4 * -(-G // (4 * per_row)))
+
+
+def launch_plan(B: int, T: int, half: int, stride: int, offset: int, G: int,
+                device: torch.device) -> dict:
+    """What ``sc_windows_cuda`` launches at these sizes on ``device``:
+    tile, work items, blocks, ring stages and dynamic shared bytes a
+    block."""
+    sms = cuda_build.sm_count(device)
+    tile = tile_for(B, G, half, stride, sms)
+    out = (ctypes.c_longlong * 4)()
+    with torch.cuda.device(device):
+        err = load_library().sc_windows_plan(B, T, half, stride, offset, G,
+                                             tile, sms, out)
+    if err != 0:
+        msg = load_library().sc_windows_error_string(err).decode()
+        raise RuntimeError(f"sc_windows_plan failed: {msg} ({err})")
+    return {"tile": tile, "items": int(out[3]), "blocks": int(out[1]),
+            "stages": int(out[0]), "shared_bytes": int(out[2])}
 
 
 def _float4_rows(a: torch.Tensor) -> torch.Tensor:
@@ -107,9 +161,11 @@ def sc_windows_cuda(a: torch.Tensor, half: int, stride: int, offset: int,
     R2 = torch.empty((B, G), dtype=torch.float32, device=dev)
     if B == 0 or G == 0:
         return P, R1, R2
+    sms = cuda_build.sm_count(dev)
     with torch.cuda.device(dev):
         err = lib.sc_windows_launch(
             a.data_ptr(), a.stride(0), B, T, half, stride, offset, G,
+            tile_for(B, G, half, stride, sms), sms,
             P.data_ptr(), R1.data_ptr(), R2.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

@@ -44,8 +44,16 @@ def window_sum(x: torch.Tensor, w: int) -> torch.Tensor:
                     dim=-2)
     prev_pre = torch.cat([torch.zeros_like(nxt[..., :1]), nxt[..., :-1]],
                          dim=-1)
-    out = (suf[..., :-1, :] + prev_pre[..., 1:, :]).reshape(*lead, -1)
-    return out[..., :T - w + 1]
+    head, tail = suf[..., :-1, :], prev_pre[..., 1:, :]
+    if x.is_complex():
+        # PyTorch adds complex tensors as head + (1+0j) * tail, and
+        # inf * 0 makes an infinite part of tail NaN: add the real and
+        # imaginary parts as floats, so each is the IEEE sum of its window.
+        out = torch.view_as_complex(torch.view_as_real(head)
+                                    + torch.view_as_real(tail))
+    else:
+        out = head + tail
+    return out.reshape(*lead, -1)[..., :T - w + 1]
 
 
 def check_args(T: int, half: int, stride: int, offset: int, G: int) -> None:

@@ -26,8 +26,13 @@ decode takes bf16 from the module default.
 
 Schmidl-Cox windows: P, R1 and R2 within rtol 2e-4, atol 2e-3 (the
 tolerance of tests/test_pallas_sync.py; the kernel sums in another order)
-at strides 1, 2 and 8, G below one tile and ragged last tiles, odd B, odd offsets, lda > T and odd contiguous rows, and detection
-through the kernel identical to detection through the plain version.  The acquisition-
+at strides 1, 2 and 8, G below one work item and ragged last items, odd B,
+odd offsets, lda > T and odd contiguous rows, a B = 1 row long enough
+that every block walks several items through its ring; at one +inf or NaN
+sample (Cox- and engine-shaped buffers, strides 1 and 8, half 256 and 512)
+non-finite exactly where the plain version is, of the same kind; and
+detection through the kernel identical to detection through the plain
+version.  The acquisition-
 inclusive Cox step goes through both kernels and never synchronises.
 
 Chirp acquisition, MC-DPSK and the Watterson channel (plain PyTorch on the
@@ -458,14 +463,62 @@ def test_window_kernel_equals_plain(dev, T, stride, offset):
 @pytest.mark.parametrize("stride", [1, 2, 8])
 @pytest.mark.parametrize("G", [5, 512, 1000, 2049])
 def test_window_kernel_tiles(dev, B, stride, G):
-    """Tiles of 512 outputs: G below one tile, exactly one, ragged last
-    tiles, odd B, an odd offset at stride 1, and a row stride (lda) above
-    T."""
+    """G below one work item, about one, ragged last items, odd B, an odd
+    offset at stride 1, and a row stride (lda) above T."""
     offset = 48 if stride > 1 else 47
     T = offset + stride * (G - 1) + 2 * 256 + 3
     a = _analytic_on(dev, B, T, seed=G + stride)
     assert a.stride(0) > T
     _assert_windows_close(a, 256, stride, offset, G)
+
+
+@pytest.mark.parametrize("stride", [1, 8])
+def test_window_kernel_blocks_walk_many_items(dev, stride):
+    """One 83 s row at 48 kHz (B = 1, T = 4,000,000): at least twice as
+    many work items as resident blocks, so every block walks several
+    through its ring of stages (the mbarrier phases of later rounds)."""
+    T = 4_000_000
+    a = _analytic_on(dev, 1, T, seed=stride)
+    G = (T - 2 * 256 - 48) // stride + 1
+    plan = cuda_sc.launch_plan(1, T, 256, stride, 48, G, dev)
+    assert plan["stages"] == 2 and plan["items"] >= 2 * plan["blocks"]
+    _assert_windows_close(a, 256, stride, 48, G)
+
+
+@pytest.mark.parametrize("half,stride", [(6000, 1), (7000, 8)])
+def test_window_kernel_one_stage_ring(dev, half, stride):
+    """Halves whose two stages do not fit a block's shared memory, so the
+    ring has one (at stride 8, 875 partials a window: the scalar window
+    loop too)."""
+    T = 20000
+    a = _analytic_on(dev, 2, T, seed=stride)
+    G = (T - 2 * half) // stride + 1
+    assert cuda_sc.launch_plan(2, T, half, stride, 0, G, dev)["stages"] == 1
+    _assert_windows_close(a, half, stride, 0, G)
+
+
+@pytest.mark.parametrize("half,stride", [(6, 1), (6, 2), (200, 8),
+                                         (300, 2), (300, 4), (24, 2),
+                                         (200, 2)])
+def test_window_kernel_at_other_halves(dev, half, stride):
+    """Halves other than the plans' 256 and 512: 6, 3, 25, 150 and 75
+    partials a window (not a multiple of 4: the scalar window loop), 12
+    and 100 (the float4 loop)."""
+    T = 3001
+    a = _analytic_on(dev, 3, T, seed=half + stride)
+    for offset in (0, 2 * stride):
+        G = (T - 2 * half - offset) // stride + 1
+        _assert_windows_close(a, half, stride, offset, G)
+
+
+def test_window_kernel_plan(dev):
+    """The launch plan at the Cox buffer: tiles of 460 outputs, five a row,
+    a two-stage ring, blocks fewer than items."""
+    G = TSC.search_grid_size(COX_CFG, 18856)
+    plan = cuda_sc.launch_plan(512, 18856, 256, 8, 48, G, dev)
+    assert plan["tile"] == 460 and plan["items"] == 512 * 5
+    assert plan["stages"] == 2 and 0 < plan["blocks"] < plan["items"]
+    assert plan["shared_bytes"] > 2 * 8 * cuda_sc.stage_samples(460, 256, 8)
 
 
 def test_window_kernel_reads_odd_rows(dev):
@@ -475,6 +528,51 @@ def test_window_kernel_reads_odd_rows(dev):
     assert a.stride(0) % 2 == 1
     _assert_windows_close(a, 256, 1, 1, 3001 - 512 - 1 + 1)
     _assert_windows_close(a, 256, 8, 8, (3001 - 512 - 8) // 8 + 1)
+
+
+NONFINITE_BUFFERS = {  # B, T, the lane and the sample made non-finite
+    "cox": (512, 18856, 300, 3828),
+    "engine": (1, 262144, 0, 100000),
+}
+NONFINITE_VALUES = {"inf": complex(float("inf"), 0.0),
+                    "nan": complex(float("nan"), 0.0)}
+
+
+def _assert_same_nonfinite(got, want):
+    """Each real part of P, R1 and R2 non-finite exactly where the plain
+    version's is, of the same kind (NaN, +inf, -inf), and within rtol
+    2e-4, atol 2e-3 elsewhere."""
+    for x, y, name in zip(got, want, ("P", "R1", "R2")):
+        parts = ((x.real, y.real, name + ".real"), (x.imag, y.imag,
+                                                     name + ".imag")) \
+            if y.is_complex() else ((x, y, name),)
+        for xp, yp, label in parts:
+            bad = ~torch.isfinite(yp)
+            assert bool(bad.any()), f"{label}: the sample reached no output"
+            for test in (torch.isnan, torch.isposinf, torch.isneginf):
+                assert torch.equal(test(xp), test(yp)), \
+                    f"{label}: {test.__name__} differs at " \
+                    f"{torch.nonzero(test(xp) != test(yp))[:5].tolist()}"
+            torch.testing.assert_close(xp[~bad], yp[~bad], rtol=2e-4,
+                                       atol=2e-3)
+
+
+@pytest.mark.parametrize("kind", sorted(NONFINITE_VALUES))
+@pytest.mark.parametrize("half,offset", [(256, 48), (512, 96)])
+@pytest.mark.parametrize("stride", [1, 8])
+@pytest.mark.parametrize("buffer", sorted(NONFINITE_BUFFERS))
+def test_window_kernel_at_a_nonfinite_sample(dev, buffer, stride, half,
+                                             offset, kind):
+    """One +inf (or NaN) sample straight into the kernel, in a Cox-shaped
+    and an engine-shaped buffer: non-finite at the plain version's outputs,
+    of the same kind, and the usual tolerance elsewhere."""
+    B, T, lane, t = NONFINITE_BUFFERS[buffer]
+    a = _analytic_on(dev, B, T, seed=stride + half)
+    a[lane, t] = NONFINITE_VALUES[kind]
+    G = (T - 2 * half - offset) // stride + 1
+    got = cuda_sc.sc_windows_cuda(a, half, stride, offset, G)
+    _assert_same_nonfinite(got, TSW.sc_windows_plain(a, half, stride, offset,
+                                                     G))
 
 
 def test_window_kernel_wrapper_checks_its_inputs(dev):

@@ -234,6 +234,83 @@ def test_sc_windows_plain_stride8_is_the_block_grid(T):
                                    rtol=2e-4, atol=2e-3)
 
 
+def _window_sets(G, offset, stride, half, t):
+    """Outputs whose first half-window [d, d+half) and whose second
+    [d+half, d+2*half) hold sample t, d = offset + stride * g."""
+    d = offset + stride * np.arange(G)
+    return (d <= t) & (t < d + half), (d + half <= t) & (t < d + 2 * half)
+
+
+@pytest.mark.parametrize("kind", ["inf", "nan"])
+@pytest.mark.parametrize("half,offset", [(256, 48), (512, 96)])
+@pytest.mark.parametrize("stride", [1, 8])
+def test_plain_windows_at_a_nonfinite_sample(stride, half, offset, kind):
+    """The oracle the card test test_window_kernel_at_a_nonfinite_sample
+    holds the kernel to: one +inf (real part; imaginary 0) or NaN sample t
+    makes R1 non-finite exactly where its first half-window holds t, R2
+    where its second does, and P where either does, each in its own way:
+    R1 and R2 +inf (or NaN); P's parts NaN for a NaN, and for +inf the
+    sign of the other factor's part -- conj(x) a[t+half] gives
+    (sign Re a[t+half], sign Im a[t+half]) * inf, conj(a[t-half]) x gives
+    (sign Re a[t-half], -sign Im a[t-half]) * inf.  Everything else is
+    finite."""
+    T, t = 4096, 1800
+    a = _t(np.asarray(_analytic(T, seed=stride)))[None].clone()
+    a[0, t] = complex(float(kind), 0.0)
+    G = (T - 2 * half - offset) // stride + 1
+    P, R1, R2 = (x[0].numpy() for x in
+                 TSW.sc_windows_plain(a, half, stride, offset, G))
+    first, second = _window_sets(G, offset, stride, half, t)
+    assert first.any() and second.any()
+    either = first | second
+    if kind == "nan":
+        pins = ((R1, first), (R2, second), (P.real, either),
+                (P.imag, either))
+        for x, holds in pins:
+            np.testing.assert_array_equal(np.isnan(x), holds)
+            assert np.isfinite(x[~holds]).all()
+        return
+    for x, holds in ((R1, first), (R2, second)):
+        np.testing.assert_array_equal(np.isposinf(x), holds)
+        assert np.isfinite(x[~holds]).all()
+    after, before = a[0, t + half].numpy(), a[0, t - half].numpy()
+    assert 0 not in (after.real, after.imag, before.real, before.imag)
+    for x, sign_first, sign_second in (
+            (P.real, np.sign(after.real), np.sign(before.real)),
+            (P.imag, np.sign(after.imag), -np.sign(before.imag))):
+        want = np.where(first, sign_first * np.inf,
+                        np.where(second, sign_second * np.inf, 0.0))
+        np.testing.assert_array_equal(np.where(either, x, 0.0), want)
+        assert np.isfinite(x[~either]).all()
+
+
+@pytest.mark.parametrize("B,G,half,stride,tile", [
+    (512, 2288, 256, 8, 460),     # the Cox buffer: 5 tiles, none ragged
+    (512, 18297, 256, 1, 512),    # sc_metric on it
+    (512, 1746, 512, 8, 352),     # an NVIS buffer: 440 would pass 34 KB
+    (60, 2288, 256, 8, 460),      # 300 items of 460: two an SM
+    (40, 2288, 256, 8, 128),      # 200 items of 460 would not be
+    (1, 32699, 256, 8, 128),      # the engine's search view
+    (10, 4923, 256, 8, 128),      # test_sync_robustness's searches
+    (1, 5, 256, 8, 8),            # fewer outputs than a quad pair
+    (2, 100, 512, 64, 52),        # a stride whose stage limits the tile
+    (2, 8001, 6000, 1, 4),        # a half whose stage passes 34 KB alone
+])
+def test_window_kernel_tile_rule(B, G, half, stride, tile):
+    """cuda_sc.tile_for on a 132-SM card: a multiple of 4 outputs, at most
+    512, at most 128 unless 512-output tiles give two items an SM; a stage
+    within 34 KB unless even 4 outputs pass it; the last tile of a row
+    short of the others by less than four outputs a tile."""
+    got = cuda_sc.tile_for(B, G, half, stride, 132)
+    assert got == tile and got % 4 == 0 and 4 <= got <= cuda_sc.MAX_TILE
+    per_row = -(-G // got)
+    if B * -(-G // cuda_sc.MAX_TILE) < 2 * 132:
+        assert got <= cuda_sc.MIN_TILE
+    assert got == 4 or cuda_sc.stage_samples(got, half, stride) * 8 \
+        <= cuda_sc.STAGE_BYTES
+    assert 0 <= per_row * got - G < 4 * per_row
+
+
 def test_sc_windows_refuses_windows_past_the_buffer():
     a = torch.zeros((1, 1000), dtype=torch.complex64)
     TSW.sc_windows(a, 256, 8, 48, 56)  # 48 + 8*55 + 512 = 1000
@@ -336,6 +413,38 @@ def test_detect_preamble_matches_jax(kind, with_deep):
         assert not ours["found"].any()
     else:
         assert ours["found"].all()
+
+
+@pytest.mark.parametrize("with_deep", [False, True])
+def test_detect_preamble_with_nonfinite_lanes_matches_jax(with_deep):
+    """A B = 8 Cox buffer on JAX's noise, one lane given a NaN audio sample
+    and one a +inf sample: the FFT Hilbert transform spreads each over its
+    whole row, which is how such a sample reaches the window sums.  The
+    clean lanes detect as JAX's (ints exact, floats within this file's
+    tolerances); the two non-finite lanes give JAX's `found` (neither
+    detects), its ints, and NaN where JAX has NaN."""
+    _, buf = noisy_tx(Modulation.DQPSK, CodeRate.R1_2, 17.0, B=8, seed=13,
+                      lead=1504, tail=1024)
+    buf = np.array(buf)
+    buf[2, 5000], buf[5, 5000] = np.nan, np.inf
+    ref = JSC.detect_preamble(CFG, jnp.asarray(buf), with_deep=with_deep)
+    ours = TSC.detect_preamble(CFG, _t(buf), with_deep=with_deep)
+    assert ours.keys() == ref.keys()
+    clean = [0, 1, 3, 4, 6, 7]
+    _assert_detection_equal({k: v[clean] for k, v in ours.items()},
+                            {k: np.asarray(v)[clean] for k, v in ref.items()})
+    assert ours["found"][clean].all()
+    for key in ref:
+        want, got = np.asarray(ref[key])[[2, 5]], ours[key].numpy()[[2, 5]]
+        if key.endswith("found"):
+            np.testing.assert_array_equal(got, [False, False], err_msg=key)
+        if want.dtype.kind == "f":
+            np.testing.assert_array_equal(np.isnan(got), np.isnan(want),
+                                          err_msg=key)
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-4,
+                                       err_msg=key)
+        else:
+            np.testing.assert_array_equal(got, want, err_msg=key)
 
 
 # ---------------------------------------------------------------------------
