@@ -30,7 +30,11 @@ checks them:
   42 dB, 10 Hz, B = 512, and 32-codeword QAM256 R5/6 frames at B = 64;
   QAM256 R2/3 on the 512-FFT pilot plan, 30 dB, B = 512; single-carrier
   DPSK (BASELINE config #1) through ``decode_dpsk_batch`` at ``medium``
-  0 dB B = 256 and ``robust`` -11 dB B = 64; the delay-fit retry
+  0 dB B = 256 and ``robust`` -11 dB B = 64 (its preamble search through
+  the hand-written score kernel, ``csrc/dpsk_score.cu``, held to the
+  plain score on each path's correlations, at one NaN and one +inf
+  correlation and on the engine's B = 1 search view, and timed beside the
+  path with the plain score it replaced); the delay-fit retry
   (``high_throughput()``, QAM16 R2/3, 8 codewords, Watterson ``good()``
   then 20 dB, B = 256); the five MFSK presets at their operating points
   through ``decode_mfsk_batch``, B = 256; OTFS through
@@ -307,7 +311,9 @@ from projectultra_tpu_torch.ofdm import delay_fit as DF
 from projectultra_tpu_torch.ofdm import demodulator as D
 from projectultra_tpu_torch.ofdm import modulator as M
 from projectultra_tpu_torch.ofdm import pipeline as P
-from projectultra_tpu_torch.ops import cuda_build, cuda_ldpc, cuda_sc
+from projectultra_tpu_torch.ops import (cuda_build, cuda_dpsk, cuda_ldpc,
+                                        cuda_sc)
+from projectultra_tpu_torch.ops import dpsk_score as DS
 from projectultra_tpu_torch.ops import ldpc as ldpc_ops
 from projectultra_tpu_torch.ops.sc_windows import sc_windows_plain
 from projectultra_tpu_torch.otfs import otfs as OT
@@ -351,6 +357,13 @@ LDPC_OPS_PER_EDGE = 14
 # float32 operations per sample of the window pre-reduction: energy (2 mul,
 # add, accumulate) and correlation (4 mul, 2 add, 2 accumulate).
 SC_OPS_PER_SAMPLE = 12
+# float32 operations of DPSK's score: per sample its energy (hypot: 2 mul,
+# add, sqrt; the square) and its differential (complex product 6, hypot 4,
+# the > 1e-10 compare, the reciprocal, the division's 2 products with 0,
+# 2 adds and 2 scalings); per offset 38 signed complex adds, 38 energy
+# adds, |acc| (4), the scaling and the threshold compare.
+DPSK_OPS_PER_SAMPLE = 5 + 18
+DPSK_OPS_PER_OFFSET = 76 + 38 + 4 + 2
 KERNELS = {  # name -> (wrapper module, TPU kernel it replaces)
     "ldpc_minsum": (cuda_ldpc, "projectultra_tpu/ops/pallas_ldpc.py:102"),
     "sc_windows": (cuda_sc, "projectultra_tpu/ops/pallas_sync.py:44"),
@@ -359,6 +372,11 @@ KERNELS = {  # name -> (wrapper module, TPU kernel it replaces)
     "ldpc_minsum_bf16": (cuda_ldpc,
                          "projectultra_tpu/ops/ldpc.py::decode "
                          "(msg_dtype=bfloat16)"),
+    # DPSK's preamble search score: one XLA fusion in the JAX package, a
+    # loop of 38 steps of about a dozen eager operators in the plain version.
+    "dpsk_score": (cuda_dpsk,
+                   "projectultra_tpu/psk/dpsk.py:305-317 find_preamble's "
+                   "differential score (an XLA fusion)"),
 }
 BF16 = torch.bfloat16
 
@@ -513,6 +531,15 @@ def sc_bound(B: int, half: int, stride: int, G: int):
     return bound(n_bytes, n_ops)
 
 
+def dpsk_bound(B: int, L: int, O: int):
+    """The score's bound: the O + 38 L samples of each row read once, the
+    O scores written once; DPSK_OPS_PER_SAMPLE a sample and
+    DPSK_OPS_PER_OFFSET an offset."""
+    span = O + (cuda_dpsk.PAIRS * L)
+    return bound(B * span * 8 + B * O * 4,
+                 B * span * DPSK_OPS_PER_SAMPLE + B * O * DPSK_OPS_PER_OFFSET)
+
+
 #: (kernel, shape, kernel ms, bound ms, basis) of every timed shape.
 SHAPES: list = []
 
@@ -521,7 +548,8 @@ SHAPES: list = []
 #: ldpc_minsum_kernel<threads, bf16>).
 KERNEL_EVENT = {"ldpc_minsum": "ldpc_minsum_kernel",
                 "ldpc_minsum_bf16": "ldpc_minsum_kernel",
-                "sc_windows": "sc_windows_kernel"}
+                "sc_windows": "sc_windows_kernel",
+                "dpsk_score": "dpsk_score_kernel"}
 
 
 def report_shape(name: str, shape: str, fn, reps: int, bound_ms: float,
@@ -1551,11 +1579,13 @@ def launches_of(fn):
     """(fn's result, {kernel: launches during fn})."""
     torch.cuda.synchronize()
     cuda_sc.launches = cuda_ldpc.launches = cuda_ldpc.launches_bf16 = 0
+    cuda_dpsk.launches = 0
     out = fn()
     torch.cuda.synchronize()
     return out, {"sc_windows": cuda_sc.launches,
                  "ldpc_minsum": cuda_ldpc.launches,
-                 "ldpc_minsum_bf16": cuda_ldpc.launches_bf16}
+                 "ldpc_minsum_bf16": cuda_ldpc.launches_bf16,
+                 "dpsk_score": cuda_dpsk.launches}
 
 
 def require_launched(label: str, launches: dict, names) -> None:
@@ -1789,10 +1819,152 @@ def dpsk_run(cfg):
     return run
 
 
-def phase_dpsk(dev: torch.device, card: str) -> None:
+DPSK_SCORE_ATOL = 2e-6   # tests/test_torch_cuda.py: scores lie in [0, 1]
+
+
+def score_inputs(cfg, rx: torch.Tensor, **kw) -> tuple:
+    """(corr, L, n_sym, O): what find_preamble hands dpsk_score for rx
+    (recorded from a search through the plain score)."""
+    seen = []
+
+    def record(corr, L, n_sym, O, expected, min_energy):
+        seen.append((corr, L, n_sym, O))
+        return DS.dpsk_score_plain(corr, L, n_sym, O, expected, min_energy)
+
+    with mock.patch.object(DP, "dpsk_score", record):
+        DP.find_preamble(cfg, rx, **kw)
+    return seen[0]
+
+
+def plain_score(run):
+    """run with find_preamble's score taken by the plain version (the loop
+    that the kernel replaced), on the same device."""
+    def wrapped(*args, **kw):
+        with mock.patch.object(DP, "dpsk_score", DS.dpsk_score_plain):
+            return run(*args, **kw)
+    return wrapped
+
+
+def compare_dpsk_scores(corr: torch.Tensor, L: int, n_sym: int, O: int,
+                        label: str) -> float:
+    """The score kernel against the plain version on one correlation:
+    NaN, +inf and zeros exactly where the plain version has them, within
+    DPSK_SCORE_ATOL elsewhere; returns the max abs difference."""
+    args = (corr, L, n_sym, O, DP.EXPECTED_SIGNS, DP.MIN_SYMBOL_ENERGY)
+    got = cuda_dpsk.dpsk_score_cuda(*args)
+    want = DS.dpsk_score_plain(*args)
+    torch.cuda.synchronize()
+    same = {name: bool(torch.equal(test(got), test(want))) for name, test in
+            (("nan", torch.isnan), ("posinf", torch.isposinf),
+             ("zero", lambda x: x == 0))}
+    fin = torch.isfinite(want)
+    err = float((got[fin] - want[fin]).abs().max())
+    print(f"dpsk_score kernel vs plain [{label}] B={corr.shape[0]} L={L} "
+          f"O={O}: max_abs_err={err!r} (tolerance {DPSK_SCORE_ATOL!r}), same "
+          f"places {same}, plain NaNs {int(torch.isnan(want).sum())}, zeros "
+          f"{int((want == 0).sum())}", flush=True)
+    require(all(same.values()) and err <= DPSK_SCORE_ATOL,
+            f"dpsk_score kernel disagrees with the plain version on {label}")
+    return err
+
+
+def same_decisions(label: str, cfg, rx: torch.Tensor, **kw) -> None:
+    """find_preamble through the kernel and through the plain score on the
+    card: found and data_start identical."""
+    got = DP.find_preamble(cfg, rx, **kw)
+    ref = plain_score(DP.find_preamble)(cfg, rx, **kw)
+    eq = [bool(torch.equal(a, b)) for a, b in zip(got, ref)]
+    print(f"{label}: find_preamble through the kernel vs the plain score: "
+          f"found, data_start, cfo, ipo, prev identical {eq}; found "
+          f"{int(got[0].sum())} of {rx.shape[0]}", flush=True)
+    require(eq[0] and eq[1], f"{label}: the kernel moves a detection")
+
+
+def engine_dpsk_view(cfg, row: torch.Tensor):
+    """(buffer [1, T], find_preamble keywords) of the engine's DPSK search
+    view over one received buffer (modem/acquisition/dpsk.py:66-78): the
+    first DPSK_MAX_SEARCH_OFFSETS + pre_n + L samples zero-padded to a
+    STREAM_BUCKET multiple, the search span capped there."""
+    L, pre_n = cfg.samples_per_symbol, cfg.preamble_samples
+    cap = ModemEngine.DPSK_MAX_SEARCH_OFFSETS
+    bucket = ModemEngine.STREAM_BUCKET
+    view = row[:cap + pre_n + L]
+    T = -(-view.shape[0] // bucket) * bucket
+    padded = torch.zeros((1, T), device=row.device)
+    padded[0, :view.shape[0]] = view
+    return padded, {"max_search_symbols": min(-(-(T - pre_n) // L), cap // L),
+                    "valid_len": torch.tensor([view.shape[0]],
+                                              dtype=torch.int32,
+                                              device=row.device)}
+
+
+def time_dpsk_shape(label: str, inputs: tuple, card: str) -> tuple:
+    """The score kernel's call and the plain version's (CUDA events, in
+    turns), and its device time against its bound; returns (call ms,
+    plain ms, bound ms, basis)."""
+    corr, L, n_sym, O = inputs
+    args = (corr, L, n_sym, O, DP.EXPECTED_SIGNS, DP.MIN_SYMBOL_ENERGY)
+    B = corr.shape[0]
+    k_ms, p_ms = time_pair(lambda: cuda_dpsk.dpsk_score_cuda(*args),
+                           lambda: DS.dpsk_score_plain(*args), 20, 3)
+    plan = cuda_dpsk.launch_plan(B, corr.shape[1], L, O, corr.device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        DS.dpsk_score_plain(*args)
+        torch.cuda.synchronize()
+    plain_ops = sum(1 for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == DeviceType.CUDA)
+    print(f"dpsk_score at {label} B={B} L={L} O={O}: kernel {k_ms!r} ms, "
+          f"plain {p_ms!r} ms (calls, CUDA events; the plain call ran "
+          f"{plain_ops} device operations under torch.profiler, the kernel "
+          f"1) on {card}; launch plan {plan}", flush=True)
+    bound_ms, by = dpsk_bound(B, L, O)
+    report_shape("dpsk_score", f"{label}, B={B}, L={L}, O={O}",
+                 lambda: cuda_dpsk.dpsk_score_cuda(*args), 20, bound_ms, by,
+                 card)
+    return k_ms, p_ms, bound_ms, by
+
+
+def phase_dpsk_score(card: str, cfg, rx: torch.Tensor, preset: str) -> tuple:
+    """The score kernel on the path's own correlations: against the plain
+    version (and, at ``medium``, at one NaN and one +inf sample and on the
+    engine's B = 1 search view through find_preamble), the decisions
+    through both, and timed.  Returns (max abs error, call ms, plain ms,
+    bound ms, basis) at the path's shape."""
+    inputs = score_inputs(cfg, rx)
+    err = compare_dpsk_scores(*inputs, f"DPSK {preset} buffer")
+    same_decisions(f"DPSK {preset}", cfg, rx)
+    timed = time_dpsk_shape(f"DPSK {preset} buffer", inputs, card)
+    if preset != "medium":
+        return (err, *timed)
+    corr, L, n_sym, O = inputs
+    for kind, (row, m) in (("nan", (3, 50_000)), ("inf", (5, 90_000))):
+        bad = corr.clone()
+        bad[row, m] = complex(float(kind), 0.0)
+        err = max(err, compare_dpsk_scores(bad, L, n_sym, O,
+                                           f"DPSK {preset} buffer, one "
+                                           f"{kind} correlation"))
+    view, kw = engine_dpsk_view(cfg, rx[0])
+    _, launches = launches_of(lambda: DP.find_preamble(cfg, view, **kw))
+    require_launched("DPSK engine search view", launches, ("dpsk_score",))
+    require(launches["dpsk_score"] == 1, "the engine's search view made "
+            f"{launches['dpsk_score']} score launches")
+    same_decisions("DPSK engine search view", cfg, view, **kw)
+    inputs = score_inputs(cfg, view, **kw)
+    err = max(err, compare_dpsk_scores(*inputs, "engine search view"))
+    time_dpsk_shape("engine search view", inputs, card)
+    return (err, *timed)
+
+
+def phase_dpsk(dev: torch.device, card: str) -> tuple:
     """Single-carrier DPSK (BASELINE #1) at the regression matrix's rows
-    through decode_dpsk_batch; the LDPC kernel on robust's -11 dB LLRs."""
+    through decode_dpsk_batch (one score and one LDPC launch a buffer),
+    timed with the score kernel and with the plain score it replaced; the
+    score kernel held to the plain version on each path's correlations;
+    the LDPC kernel on robust's -11 dB LLRs.  Returns medium's row of the
+    kernels line (launches, max abs error, call ms, plain ms, bound ms,
+    basis)."""
     k = get_code(DPSK_RATE).k
+    row = None
     for i, (preset, snr, B) in enumerate(DPSK_CASES):
         cfg = getattr(DP, preset)()
         g = torch.Generator(device=dev).manual_seed(80 + i)
@@ -1802,7 +1974,7 @@ def phase_dpsk(dev: torch.device, card: str) -> None:
         label = f"DPSK {preset} {snr} dB B={B} T={tx.shape[1]}"
         (out, ok, iters, det), launches = launches_of(
             lambda: DP.decode_dpsk_batch(cfg, DPSK_RATE, rx_all[0]))
-        require_launched(label, launches, ("ldpc_minsum",))
+        require_launched(label, launches, ("dpsk_score", "ldpc_minsum"))
         print(f"{label}: found_rate="
               f"{float(det['found'].float().mean())!r} mean_iters="
               f"{float(iters.float().mean())!r} cfo max |.| "
@@ -1811,15 +1983,23 @@ def phase_dpsk(dev: torch.device, card: str) -> None:
         n = PATH_CPU_LANES
         cpu = DP.decode_dpsk_batch(cfg, DPSK_RATE, rx_all[0][:n].cpu())
         require(bool(torch.equal(det["data_start"][:n].cpu(),
-                                 cpu[3]["data_start"])),
+                                 cpu[3]["data_start"])
+                      and torch.equal(det["found"][:n].cpu(),
+                                      cpu[3]["found"])),
                 f"{label}: preamble search on the card differs from the CPU")
         same_on_cpu(label, (out[:n], ok[:n]), cpu[:2])
+        scored = phase_dpsk_score(card, cfg, rx_all[0], preset)
+        if preset == "medium":
+            row = (launches["dpsk_score"], *scored)
         run = dpsk_run(cfg)
+        path_timing(f"DPSK {preset} path, the plain score (before the "
+                    "kernel)", plain_score(run), rx_all, B, card)
         path_timing(f"DPSK {preset} path", run, rx_all, B, card)
         if preset == "robust":
             llrs = run(rx_all[0], noop)[0]
             ldpc_at_new_shape(f"R1/4 DPSK robust {snr} dB", DPSK_RATE, llrs,
                               card)
+    return row
 
 
 def delayfit_decode(rx: torch.Tensor, info: torch.Tensor, mark=noop):
@@ -3510,7 +3690,7 @@ def main() -> None:
 
     phase_nvis(dev, card)
     phase_pilot_high_order(dev, card)
-    phase_dpsk(dev, card)
+    dpsk_row = phase_dpsk(dev, card)
     phase_delayfit(dev, card)
     phase_mfsk(dev, card)
     phase_otfs(dev, card)
@@ -3536,13 +3716,14 @@ def main() -> None:
     # launches: each kernel's count in the run of its own slice's path
     # (the LDPC kernel's in the slice-1 path, its bf16 instantiation's in
     # that path with bf16 messages; the counts of the Cox and chirp paths
-    # are printed above).  ms and bound_ms at that path's shape; no single
-    # PyTorch call computes any of the three (library_ms null).
+    # are printed above; the DPSK score kernel's in the DPSK medium path).
+    # ms and bound_ms at that path's shape; no single PyTorch call computes
+    # any of the four (library_ms null).
     rows = [("ldpc_minsum", ldpc_launches, ldpc_err, ldpc_ms, ldpc_plain_ms,
              ldpc_bound_ms, ldpc_by),
             ("sc_windows", cox_launches["sc_windows"], sc_err, sc_ms,
              sc_plain_ms, sc_bound_ms, sc_by),
-            ("ldpc_minsum_bf16", *bf16_row)]
+            ("ldpc_minsum_bf16", *bf16_row), ("dpsk_score", *dpsk_row)]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source_of(name),
          "replaces": KERNELS[name][1], "launches": launches,

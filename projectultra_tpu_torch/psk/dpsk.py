@@ -33,6 +33,7 @@ import torch
 from ..config import CodeRate
 from ..fec import ldpc as ldpc_codes
 from ..ops import ldpc as ldpc_ops
+from ..ops.dpsk_score import dpsk_score
 from ..ops.sc_windows import window_sum
 from ..sync.chirp import frame_spans
 
@@ -43,6 +44,8 @@ DETECTION_THRESHOLD = 0.80
 GLOBAL_OUTLIER_RATIO = 1.3
 MIN_SYMBOL_ENERGY = 0.001
 REFINE_SYMBOLS = 6
+# The signs of the preamble's 38 symbol-to-symbol differentials.
+EXPECTED_SIGNS = np.tile(BARKER13, PREAMBLE_REPEATS)[1:].astype(np.float32)
 
 TWO_PI = 2.0 * math.pi
 
@@ -385,22 +388,10 @@ def find_preamble(cfg: DPSKConfig, samples: torch.Tensor,
 
     # Differential pattern score (computeDifferentialScore,
     # dpsk.hpp:487-546) at offsets o < O: symbol j of offset o is
-    # corr_all[o + j*L], so every term is one shifted [B, O] slice.
+    # corr_all[o + j*L] (ops/dpsk_score.py; a kernel on the card).
     O = min(max_search_symbols * L, T - pre_n)
-    acc = torch.zeros((B, O), dtype=torch.complex64, device=dev)
-    prev = corr_all[:, :O]
-    energy = prev.abs() ** 2
-    for j in range(1, n_sym):
-        cur = corr_all[:, j * L:j * L + O]
-        diff = cur * prev.conj()
-        mag = diff.abs()
-        dn = torch.where(mag > 1e-10, diff / torch.clamp(mag, min=1e-30),
-                         0.0)
-        acc = acc + dn * tb.expected[j - 1]
-        energy = energy + cur.abs() ** 2
-        prev = cur
-    score = acc.abs() / (n_sym - 1)
-    score = torch.where(energy >= MIN_SYMBOL_ENERGY * n_sym, score, 0.0)
+    score = dpsk_score(corr_all, L, n_sym, O, EXPECTED_SIGNS,
+                       MIN_SYMBOL_ENERGY)
     offs = torch.arange(O, device=dev)
     vl = None
     if valid_len is not None:

@@ -48,6 +48,19 @@ LLRs; the NVIS, DPSK, MFSK and OTFS receiver steps through the kernels and
 equal to the CPU path lane for lane; the delay fit's LLRs on the card
 within rtol 1e-3, atol 2e-3 of the CPU.
 
+DPSK's differential-score kernel against ``dpsk_score_plain`` on the
+card: scores within 2e-6 (scores lie in [0, 1]; the kernel rounds each
+differential's complex product as this PyTorch's build does, bit-equal
+where measured, but another build may fuse it otherwise), zeros and
+non-finite values exactly where the plain version has them, at the CPU
+tests' shapes, a strided view, the DPSK path's shapes (``medium`` B = 256,
+``robust`` B = 64), the engine's B = 1 search view and a B = 1 row of
+262,144 offsets, and at one NaN or +inf correlation; ``find_preamble`` on
+the card through one launch, found and data_start equal to the CPU port,
+every output bit-equal to the card's plain path, and no synchronisation;
+launches counted on ``find_preamble``, ``decode_dpsk_batch`` and the
+engine's DPSK search.
+
 The streaming engine: ``ModemEngine()`` takes the card; the reference
 CLI's five files streamed through it give the CPU engine's events and
 consumed positions, through both kernels.
@@ -72,9 +85,11 @@ from projectultra_tpu_torch.config import (CodeRate, ModemConfig,  # noqa: E402
                                            Modulation)
 from projectultra_tpu_torch.fec import ldpc  # noqa: E402
 from projectultra_tpu_torch.ofdm import pipeline as TP  # noqa: E402
-from projectultra_tpu_torch.ops import cuda_ldpc, cuda_sc  # noqa: E402
+from projectultra_tpu_torch.ops import cuda_dpsk, cuda_ldpc, cuda_sc  # noqa: E402
+from projectultra_tpu_torch.ops import dpsk_score as TDS  # noqa: E402
 from projectultra_tpu_torch.ops import ldpc as T  # noqa: E402
 from projectultra_tpu_torch.ops import sc_windows as TSW  # noqa: E402
+from projectultra_tpu_torch.psk import dpsk as TD  # noqa: E402
 from projectultra_tpu_torch.psk import mc_dpsk as TMC  # noqa: E402
 from projectultra_tpu_torch.sim import watterson as TW  # noqa: E402
 from projectultra_tpu_torch.sync import chirp as TC  # noqa: E402
@@ -1079,3 +1094,237 @@ def test_two_station_session_on_the_card(dev):
     assert a.send_message("to b") and b.send_message("to a")
     assert got_b == ["to b"] and got_a == ["to a"]
     assert cuda_ldpc.launches > before[0] and cuda_sc.launches > before[1]
+
+
+# ---------------------------------------------------------------------------
+# DPSK's differential-score kernel
+# ---------------------------------------------------------------------------
+
+DPSK_N_SYM = 39
+DPSK_ATOL = 2e-6
+# (L, B, O): the CPU tests' shapes, the DPSK path's (medium's and robust's
+# buffers of chip_smoke.py), the engine's search view at medium (B = 1,
+# 341 symbols of 768) and a B = 1 row of 4,096 symbols of 64.
+DPSK_SHAPES = [(64, 1, 100), (64, 3, 1000), (384, 3, 5000), (384, 1, 127),
+               (768, 3, 2 * 768 + 5), (768, 1, 121_000), (64, 3, 12_797),
+               (768, 256, 119_808), (1536, 64, 239_616), (768, 1, 261_888),
+               (64, 1, 262_144)]
+
+
+def _dpsk_corr(dev, L, B, O, seed=0):
+    """[B, O + 38 L + 7] complex64 correlations made with numpy: normals,
+    the preamble's symbols at O // 3, faint samples from O // 2 and silence
+    from 2 O // 3 (offsets there score 0 by the energy threshold)."""
+    rng = np.random.default_rng(seed)
+    n = O + (DPSK_N_SYM - 1) * L + 7
+    c = (rng.standard_normal((B, n), np.float32)
+         + 1j * rng.standard_normal((B, n), np.float32)).astype(np.complex64)
+    c[:, O // 2:] *= np.float32(1e-3)
+    c[:, 2 * O // 3:] = 0
+    phases = np.cumsum(np.where(np.concatenate([[1.0], TD.EXPECTED_SIGNS])
+                                < 0, np.pi, 0.0)) + 0.3 * np.arange(DPSK_N_SYM)
+    c[:, O // 3 + np.arange(DPSK_N_SYM) * L] = 2.0 * np.exp(1j * phases)
+    return torch.from_numpy(c).to(dev)
+
+
+def _dpsk_scores(corr, L, O):
+    """(kernel, plain) scores of one correlation, one launch counted."""
+    before = cuda_dpsk.launches
+    got = TDS.dpsk_score(corr, L, DPSK_N_SYM, O, TD.EXPECTED_SIGNS,
+                         TD.MIN_SYMBOL_ENERGY)
+    assert cuda_dpsk.launches == before + 1
+    want = TDS.dpsk_score_plain(corr, L, DPSK_N_SYM, O, TD.EXPECTED_SIGNS,
+                                TD.MIN_SYMBOL_ENERGY)
+    torch.cuda.synchronize()
+    return got, want
+
+
+def _assert_scores_close(got, want):
+    """NaN, +inf, zeros exactly where the plain version has them; within
+    DPSK_ATOL elsewhere."""
+    assert got.shape == want.shape and got.dtype == torch.float32
+    for test in (torch.isnan, torch.isposinf, lambda x: x == 0):
+        assert torch.equal(test(got), test(want))
+    fin = torch.isfinite(want)
+    err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) \
+        else 0.0
+    assert err <= DPSK_ATOL, err
+    return err
+
+
+@pytest.mark.parametrize("L,B,O", DPSK_SHAPES)
+def test_dpsk_score_kernel_equals_plain(dev, L, B, O):
+    corr = _dpsk_corr(dev, L, B, O, seed=L + B)
+    got, want = _dpsk_scores(corr, L, O)
+    err = _assert_scores_close(got, want)
+    assert bool((want == 0).any()) and bool((want > 0.99).any())
+    print(f"dpsk_score L={L} B={B} O={O}: max |kernel - plain| = {err!r}")
+
+
+def test_dpsk_score_kernel_reads_a_strided_view(dev):
+    """A column slice of wider rows: row stride above n_corr, an odd
+    storage offset."""
+    L, B, O = 384, 3, 5000
+    corr = _dpsk_corr(dev, L, B, O, seed=4)
+    wide = torch.zeros((B, corr.shape[1] + 13), dtype=torch.complex64,
+                       device=dev)
+    wide[:, 5:5 + corr.shape[1]] = corr
+    view = wide[:, 5:5 + corr.shape[1]]
+    assert view.stride(0) > view.shape[1]
+    got, want = _dpsk_scores(view, L, O)
+    _assert_scores_close(got, want)
+    torch.testing.assert_close(got, _dpsk_scores(corr, L, O)[0], rtol=0,
+                               atol=0)
+
+
+# (L, B, O, row, sample), as tests/test_torch_dpsk_score.py's.
+DPSK_NONFINITE = {"batch": (384, 3, 16_000, 1, 15_000),
+                  "engine": (768, 1, 40_000, 0, 35_000)}
+
+
+@pytest.mark.parametrize("kind", ["nan", "inf"])
+@pytest.mark.parametrize("case", sorted(DPSK_NONFINITE))
+def test_dpsk_score_kernel_at_a_nonfinite_correlation(dev, case, kind):
+    """One NaN (zeros) or +inf (NaNs) correlation: the kernel's zeros and
+    NaNs where the plain version's are, the 39 offsets whose symbols hold
+    the sample."""
+    L, B, O, row, m = DPSK_NONFINITE[case]
+    rng = np.random.default_rng(11)
+    n = O + (DPSK_N_SYM - 1) * L + 7
+    c = (rng.standard_normal((B, n)) + 1j * rng.standard_normal((B, n))) \
+        .astype(np.complex64)
+    c[row, m] = complex(float(kind), 0.0)
+    got, want = _dpsk_scores(torch.from_numpy(c).to(dev), L, O)
+    _assert_scores_close(got, want)
+    hit = torch.isnan(want) if kind == "inf" else want == 0
+    assert int(hit.sum()) == DPSK_N_SYM
+
+
+def test_dpsk_score_kernel_plan(dev):
+    plan = cuda_dpsk.launch_plan(256, 148_992 + 7, 768, 119_808, dev)
+    assert plan["tile"] == 156 and plan["tiles"] == 1
+    assert plan["blocks"] == 256 * 24
+    assert plan["shared_bytes"] == (160 + 38) * 32 * 12
+    assert plan["blocks_per_sm"] >= 2
+    # B = 1, 4,096 symbol indices of 64 samples: tiles of 32 on two
+    # residue groups fill the card
+    plan = cuda_dpsk.launch_plan(1, 262_144 + 38 * 64 + 7, 64, 262_144, dev)
+    assert plan["tile"] == 32 and plan["blocks"] == 256
+
+
+def test_dpsk_score_kernel_wrapper_checks_its_inputs(dev):
+    corr = _dpsk_corr(dev, 64, 2, 300)
+    args = (64, DPSK_N_SYM, 300, TD.EXPECTED_SIGNS, TD.MIN_SYMBOL_ENERGY)
+    for bad in (corr.to(torch.complex128), corr[0], corr.T):
+        with pytest.raises(ValueError):
+            cuda_dpsk.dpsk_score_cuda(bad, *args)
+    with pytest.raises(ValueError):
+        cuda_dpsk.dpsk_score_cuda(corr, 64, 14, 300, TD.EXPECTED_SIGNS[:13],
+                                  TD.MIN_SYMBOL_ENERGY)
+    with pytest.raises(ValueError):
+        cuda_dpsk.dpsk_score_cuda(corr, 64, DPSK_N_SYM, corr.shape[1],
+                                  TD.EXPECTED_SIGNS, TD.MIN_SYMBOL_ENERGY)
+
+
+def _dpsk_buffers(dev, preset, snr_db, B, seed=3):
+    """run_point_dpsk's frames on the card: lead 4,800, preamble, one R1/4
+    codeword, tail 4,000, AWGN at snr_db."""
+    cfg = getattr(TD, preset)()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    info = torch.randint(0, 2, (B, 162), generator=g, device=dev,
+                         dtype=torch.uint8)
+    cw = T.encode(ldpc.get_code(CodeRate.R1_4), info)
+    pre = torch.from_numpy(TD.generate_preamble(cfg)).to(dev)
+    tx = torch.cat([torch.zeros((B, 4800), device=dev), pre.expand(B, -1),
+                    TD.modulate(cfg, cw), torch.zeros((B, 4000), device=dev)],
+                   dim=-1)
+    return cfg, info, TW.add_noise_active(tx, snr_db, g)
+
+
+@pytest.mark.parametrize("preset,snr,B", [("medium", 0.0, 8),
+                                          ("robust", -11.0, 4),
+                                          ("fast", 0.0, 8),
+                                          ("max_speed", 6.0, 8)])
+def test_find_preamble_through_the_dpsk_kernel(dev, monkeypatch, preset, snr,
+                                               B):
+    """One kernel launch a search; found and data_start equal to the CPU
+    port; every output bit-equal to the same search on the card through
+    the plain score (the rest of find_preamble is the same torch code)."""
+    cfg, _, rx = _dpsk_buffers(dev, preset, snr, B)
+    vl = torch.tensor([rx.shape[1]] * (B - 1) + [4800 + cfg.preamble_samples
+                                                 // 2], device=dev)
+    for valid in (None, vl):
+        before = cuda_dpsk.launches
+        got = TD.find_preamble(cfg, rx, valid_len=valid)
+        assert cuda_dpsk.launches == before + 1
+        cpu = TD.find_preamble(cfg, rx.cpu(), valid_len=None if valid is None
+                               else valid.cpu())
+        assert torch.equal(got[0].cpu(), cpu[0])
+        assert torch.equal(got[1].cpu(), cpu[1])
+        with monkeypatch.context() as m:
+            m.setattr(TD, "dpsk_score", TDS.dpsk_score_plain)
+            ref = TD.find_preamble(cfg, rx, valid_len=valid)
+        assert cuda_dpsk.launches == before + 1
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+        assert bool(got[0][:B - 1].all())
+
+
+def test_decode_dpsk_batch_goes_through_both_kernels(dev):
+    cfg, info, rx = _dpsk_buffers(dev, "medium", 0.0, 16)
+    before = (cuda_dpsk.launches, cuda_ldpc.launches)
+    out, ok, _, _ = TD.decode_dpsk_batch(cfg, CodeRate.R1_4, rx)
+    assert cuda_dpsk.launches == before[0] + 1
+    assert cuda_ldpc.launches > before[1]
+    assert bool(ok.all()) and torch.equal(out, info)
+
+
+def test_find_preamble_never_synchronises(dev):
+    """The FFT matched filter, the score kernel, both rules, the CFO and
+    phase estimates and the timing refinement enqueue without a
+    host-device synchronisation once the per-device tables exist."""
+    cfg, _, rx = _dpsk_buffers(dev, "medium", 0.0, 8)
+    vl = torch.full((8,), rx.shape[1], device=dev)
+    TD.find_preamble(cfg, rx, valid_len=vl)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        found = TD.find_preamble(cfg, rx, valid_len=vl)[0]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(found.all())
+
+
+def test_engine_dpsk_search_goes_through_the_kernel(dev):
+    """A DPSK data frame streamed through ModemEngine in the DPSK mode:
+    the card's events and consumed positions equal the CPU engine's, and
+    its searches launch the score kernel."""
+    from projectultra_tpu_torch.modem.engine import ModemEngine
+    from projectultra_tpu_torch.protocol import frame_v2 as F
+
+    def engine(device):
+        e = ModemEngine(device=device)
+        e.set_waveform_mode(F.WaveformMode.DPSK)
+        e.connect_waveform = F.WaveformMode.DPSK
+        return e
+
+    def stream(device, audio):
+        e, events, consumed = engine(device), [], []
+        e.on_frame = events.append
+        for i in range(0, len(audio), 960):
+            e.feed_audio(audio[i:i + 960])
+            e.poll()
+            consumed.append(e._rx_consumed)
+        return events, consumed
+
+    frame = F.DataFrame.make_data("AA1AA", "BB2BB", 1, "dpsk card").serialize()
+    audio = np.concatenate([np.zeros(3000, np.float32),
+                            engine("cpu").transmit(frame),
+                            np.zeros(8000, np.float32)])
+    before = cuda_dpsk.launches
+    got, cons = stream(dev, audio)
+    assert cuda_dpsk.launches > before
+    want, cons_c = stream(torch.device("cpu"), audio)
+    assert cons == cons_c and len(got) == len(want) == 1
+    assert got[0].frame_bytes == want[0].frame_bytes == frame
+    assert got[0].waveform == F.WaveformMode.DPSK

@@ -44,6 +44,8 @@ def test_port_modules_found():
                  "projectultra_tpu_torch.ops.sc_windows",
                  "projectultra_tpu_torch.ops.cuda_sc",
                  "projectultra_tpu_torch.ops.cuda_build",
+                 "projectultra_tpu_torch.ops.dpsk_score",
+                 "projectultra_tpu_torch.ops.cuda_dpsk",
                  "projectultra_tpu_torch.sync.chirp",
                  "projectultra_tpu_torch.psk",
                  "projectultra_tpu_torch.psk.mc_dpsk",
