@@ -45,6 +45,7 @@ from ..device import host_table
 from . import carriers as carriers_mod
 from ..ops import demap as demap_ops
 from ..ops import mixer as mixer_ops
+from ..utils import metrics
 
 # Constants from demodulator_constants.hpp / demodulator_impl.hpp.
 DEFAULT_NOISE_VAR = 0.1
@@ -1212,34 +1213,36 @@ class Demodulator(nn.Module):
     def forward(self, samples: torch.Tensor, cfo_hz=0.0, initial_phase=0.0):
         """[B, T] passband aligned at training start (float32, or the
         analytic signal) -> (llrs [B, S*C*bits], DemodState)."""
-        B = samples.shape[0]
-        L = self.config.symbol_duration
-        Tr, S = self.training_symbols, self.num_data_symbols
-        q256 = self.mod == Modulation.QAM256
-        samples = maybe_analytic(self.mod, samples)
-        state = init_state(self.config, B, cfo_hz, initial_phase,
-                           samples.device)
-        bins_w = (self.lts_wr, self.lts_wi)
-        if Tr > 0:
-            tr = samples[:, :Tr * L].reshape(B, Tr, L)
-            state = estimate_channel_from_lts(
-                self.config, state, tr,
-                image_cancel=q256 and QAM256_RX == "real", taper=q256,
-                bins_w=bins_w)
-        data = samples[:, Tr * L:(Tr + S) * L].reshape(B, S, L)
-        if self.fast:
-            llrs = _demod_differential_parallel(
-                self.config, self.mod, state, data,
-                (self.analysis_r, self.analysis_i), any_cfo(cfo_hz))
+        with metrics.span("ofdm.demodulate", samples):
+            B = samples.shape[0]
+            L = self.config.symbol_duration
+            Tr, S = self.training_symbols, self.num_data_symbols
+            q256 = self.mod == Modulation.QAM256
+            samples = maybe_analytic(self.mod, samples)
+            state = init_state(self.config, B, cfo_hz, initial_phase,
+                               samples.device)
+            bins_w = (self.lts_wr, self.lts_wi)
+            if Tr > 0:
+                tr = samples[:, :Tr * L].reshape(B, Tr, L)
+                state = estimate_channel_from_lts(
+                    self.config, state, tr,
+                    image_cancel=q256 and QAM256_RX == "real", taper=q256,
+                    bins_w=bins_w)
+            data = samples[:, Tr * L:(Tr + S) * L].reshape(B, S, L)
+            if self.fast:
+                llrs = _demod_differential_parallel(
+                    self.config, self.mod, state, data,
+                    (self.analysis_r, self.analysis_i), any_cfo(cfo_hz))
+                return llrs, state
+            if self.refined:
+                llrs = _demod_coherent_refined(self.config, self.mod, state,
+                                               data, t0_base=Tr * L,
+                                               taper=q256, bins_w=bins_w)
+                return llrs, state
+            state, llrs = _scan_data_symbols(self.config, self.mod, state,
+                                             data, t0_base=Tr * L,
+                                             bins_w=bins_w)
             return llrs, state
-        if self.refined:
-            llrs = _demod_coherent_refined(self.config, self.mod, state,
-                                           data, t0_base=Tr * L, taper=q256,
-                                           bins_w=bins_w)
-            return llrs, state
-        state, llrs = _scan_data_symbols(self.config, self.mod, state, data,
-                                         t0_base=Tr * L, bins_w=bins_w)
-        return llrs, state
 
 
 @functools.lru_cache(maxsize=None)

@@ -24,6 +24,7 @@ from ..fec import ldpc
 from . import carriers as carriers_mod
 from ..fec.interleave import channel_interleaver
 from ..ops import ldpc as ldpc_ops
+from ..utils import metrics
 from . import demodulator as demod_mod
 from . import modulator as mod_mod
 
@@ -153,8 +154,9 @@ class FramePipeline(nn.Module):
     def rx(self, samples: torch.Tensor, cfo_hz=0.0, initial_phase=0.0):
         """[B, T] aligned passband -> (info_bits [B, k*ncw] uint8, ok [B]
         bool, iters [B, ncw] int32)."""
-        llrs, _ = self.demodulator(samples, cfo_hz, initial_phase)
-        return self.decode(llrs)
+        with metrics.span("ofdm.rx", samples):
+            llrs, _ = self.demodulator(samples, cfo_hz, initial_phase)
+            return self.decode(llrs)
 
 
 @functools.lru_cache(maxsize=None)

@@ -46,6 +46,7 @@ from torch import nn
 from ..device import resolve
 from ..fec.ldpc import (DEFAULT_MAX_ITERS, HARD_LLR, LDPCCode,
                         MIN_SUM_SCALE, V2C_CLAMP)
+from ..utils import metrics
 from ..utils.bits import bits_to_bytes, bytes_to_bits
 
 MSG_DTYPES = (torch.float32, torch.bfloat16)
@@ -363,14 +364,16 @@ def decode_totals(graph: LDPCGraph, llrs: torch.Tensor,
                   trap_escape: bool = False, msg_dtype=None):
     """Device dispatch: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors.  Returns (llr_total, ok, iters)."""
-    msg_dtype = msg_dtype_of(msg_dtype)
-    if llrs.device.type == "cuda":
-        from . import cuda_ldpc  # imports this module
-        return cuda_ldpc.decode_cuda(graph, llrs, max_iters, trap_escape,
-                                     msg_dtype)
-    if llrs.device.type != "cpu":
-        raise ValueError(f"LDPC decode runs on cuda or cpu, not {llrs.device}")
-    return decode_plain(graph, llrs, max_iters, trap_escape, msg_dtype)
+    with metrics.span("ldpc.decode", llrs):
+        msg_dtype = msg_dtype_of(msg_dtype)
+        if llrs.device.type == "cuda":
+            from . import cuda_ldpc  # imports this module
+            return cuda_ldpc.decode_cuda(graph, llrs, max_iters, trap_escape,
+                                         msg_dtype)
+        if llrs.device.type != "cpu":
+            raise ValueError(
+                f"LDPC decode runs on cuda or cpu, not {llrs.device}")
+        return decode_plain(graph, llrs, max_iters, trap_escape, msg_dtype)
 
 
 def decode(code: LDPCCode, llrs: torch.Tensor,

@@ -37,6 +37,7 @@ from ..ops import ldpc as ldpc_ops
 from ..sim.watterson import analytic_mult
 from ..sync import chirp as chirp_mod
 from ..sync.chirp import ChirpConfig
+from ..utils import metrics
 
 
 @dataclasses.dataclass(frozen=True)
@@ -416,13 +417,14 @@ def tx_chirp_frame(cfg: MCDPSKConfig, rate: CodeRate,
                    info_bits: torch.Tensor) -> torch.Tensor:
     """[B, k] info bits -> [B, T] float32 frames as the bench builds them:
     [LEAD zeros][chirp][training][reference][one codeword][TAIL zeros]."""
-    B, dev = info_bits.shape[0], info_bits.device
-    graph = ldpc_ops.graph_for(ldpc_codes.get_code(rate), dev)
-    data = modulate(cfg, ldpc_ops.encode_with(graph, info_bits))
-    pre = _preamble_on(cfg, dev)
-    return torch.cat([torch.zeros((B, LEAD), device=dev),
-                      pre.expand(B, pre.shape[0]), data,
-                      torch.zeros((B, TAIL), device=dev)], dim=-1)
+    with metrics.span("mcdpsk.tx", info_bits):
+        B, dev = info_bits.shape[0], info_bits.device
+        graph = ldpc_ops.graph_for(ldpc_codes.get_code(rate), dev)
+        data = modulate(cfg, ldpc_ops.encode_with(graph, info_bits))
+        pre = _preamble_on(cfg, dev)
+        return torch.cat([torch.zeros((B, LEAD), device=dev),
+                          pre.expand(B, pre.shape[0]), data,
+                          torch.zeros((B, TAIL), device=dev)], dim=-1)
 
 
 def demodulate_detected(cfg: MCDPSKConfig, samples: torch.Tensor,
@@ -432,12 +434,14 @@ def demodulate_detected(cfg: MCDPSKConfig, samples: torch.Tensor,
     ``intra_offset`` avoids a TPU gather penalty and timed the same on the
     H100, PERF.md) and demodulate it at the detected CFO.  Returns LLRs
     [B, nbits]."""
-    tr = chirp_mod.training_start(cfg.chirp_config(), det["down_chirp_start"])
-    span_len = (cfg.training_samples + cfg.ref_samples
-                + num_data_symbols * cfg.samples_per_symbol)
-    span = chirp_mod.frame_spans(samples, tr, span_len)
-    return demodulate_presynced(cfg, span, det["cfo_hz"],
-                                tr.to(torch.float32), num_data_symbols)
+    with metrics.span("mcdpsk.demodulate", samples):
+        tr = chirp_mod.training_start(cfg.chirp_config(),
+                                      det["down_chirp_start"])
+        span_len = (cfg.training_samples + cfg.ref_samples
+                    + num_data_symbols * cfg.samples_per_symbol)
+        span = chirp_mod.frame_spans(samples, tr, span_len)
+        return demodulate_presynced(cfg, span, det["cfo_hz"],
+                                    tr.to(torch.float32), num_data_symbols)
 
 
 def decode_chirp_batch(cfg: MCDPSKConfig, rate: CodeRate,
@@ -449,12 +453,13 @@ def decode_chirp_batch(cfg: MCDPSKConfig, rate: CodeRate,
 
     Returns (info [B, k] uint8, ok [B] bool (decoded AND detected),
     iters [B] int32, det dict)."""
-    code = ldpc_codes.get_code(rate)
-    det = chirp_mod.detect_dual_chirp(cfg.chirp_config(), samples,
-                                      threshold=cfg.chirp_threshold)
-    llrs = demodulate_detected(cfg, samples, det,
-                               num_symbols_for_bits(cfg, code.n))
-    graph = ldpc_ops.graph_for(code, samples.device)
-    llr_total, ok, iters = ldpc_ops.decode_totals(graph, llrs[:, :code.n])
-    info = (llr_total[:, :code.k] < 0).to(torch.uint8)
-    return info, ok & det["success"], iters, det
+    with metrics.span("mcdpsk.rx", samples):
+        code = ldpc_codes.get_code(rate)
+        det = chirp_mod.detect_dual_chirp(cfg.chirp_config(), samples,
+                                          threshold=cfg.chirp_threshold)
+        llrs = demodulate_detected(cfg, samples, det,
+                                   num_symbols_for_bits(cfg, code.n))
+        graph = ldpc_ops.graph_for(code, samples.device)
+        llr_total, ok, iters = ldpc_ops.decode_totals(graph, llrs[:, :code.n])
+        info = (llr_total[:, :code.k] < 0).to(torch.uint8)
+        return info, ok & det["success"], iters, det

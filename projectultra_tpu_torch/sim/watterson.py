@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import mixer as mixer_ops
+from ..utils import metrics
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,14 +242,16 @@ def add_noise_with(samples: torch.Tensor, snr_db,
                    noise: torch.Tensor) -> torch.Tensor:
     """samples + noise_std * noise, with the signal power measured over
     active samples only (|s| > 1e-6), per frame along the last axis."""
-    active = samples.abs() > 1e-6
-    power = torch.where(active, samples * samples, 0.0).sum(-1) \
-        / torch.clamp(active.sum(-1), min=1)
-    # A scalar SNR stays a host scalar: copying it to the device would
-    # synchronise the stream.
-    snr_lin = 10.0 ** (torch.as_tensor(snr_db, dtype=torch.float32) / 10.0)
-    noise_std = torch.sqrt(power / snr_lin)
-    return samples + noise_std[..., None] * noise
+    with metrics.span("noise.awgn", samples):
+        active = samples.abs() > 1e-6
+        power = torch.where(active, samples * samples, 0.0).sum(-1) \
+            / torch.clamp(active.sum(-1), min=1)
+        # A scalar SNR stays a host scalar: copying it to the device would
+        # synchronise the stream.
+        snr_lin = 10.0 ** (torch.as_tensor(snr_db, dtype=torch.float32)
+                           / 10.0)
+        noise_std = torch.sqrt(power / snr_lin)
+        return samples + noise_std[..., None] * noise
 
 
 def add_noise_active(samples: torch.Tensor, snr_db,

@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.sc_windows import window_sum
+from ..utils import metrics
 
 _BF16 = os.environ.get("ULTRA_CHIRP_BF16") == "1"
 
@@ -278,17 +279,18 @@ def _decimate(cfg: ChirpConfig, samples: torch.Tensor) -> torch.Tensor:
     with K/D taps and the asymmetric padding (K/D//2, K/D - 1 - K/D//2).
     (An unfold + matmul over 8-strided 128-sample windows computes the same
     sum; on the H100 it was the slower of the two, PERF.md.)"""
-    D = DECIM
-    B, T = samples.shape
-    Tb = -(-T // D)
-    kern = _decim_kernel(cfg, samples.device)
-    kw = kern.shape[-1]
-    if _BF16:
-        samples, kern = _bf16(samples), _bf16(kern)
-    xp = F.pad(samples, (0, Tb * D - T))
-    xb = xp.reshape(B, Tb, D).transpose(1, 2)                # [B, D, Tb]
-    out = F.conv1d(F.pad(xb, (kw // 2, kw - 1 - kw // 2)), kern)
-    return torch.complex(out[:, 0], out[:, 1])
+    with metrics.span("chirp.decimate", samples):
+        D = DECIM
+        B, T = samples.shape
+        Tb = -(-T // D)
+        kern = _decim_kernel(cfg, samples.device)
+        kw = kern.shape[-1]
+        if _BF16:
+            samples, kern = _bf16(samples), _bf16(kern)
+        xp = F.pad(samples, (0, Tb * D - T))
+        xb = xp.reshape(B, Tb, D).transpose(1, 2)                # [B, D, Tb]
+        out = F.conv1d(F.pad(xb, (kw // 2, kw - 1 - kw // 2)), kern)
+        return torch.complex(out[:, 0], out[:, 1])
 
 
 def _window_sum_dec(samples: torch.Tensor, L: int, n_pos_d: int) -> torch.Tensor:
@@ -399,143 +401,149 @@ def detect_dual_chirp(cfg: ChirpConfig, samples: torch.Tensor,
     up_chirp_start, down_chirp_start, next_up_start (int32), cfo_hz,
     up_correlation, down_correlation (float32).  Nothing is read to the
     host."""
-    B, T = samples.shape
-    dev = samples.device
-    L = cfg.chirp_samples
-    gap = cfg.gap_samples
-    D = DECIM
-    _, _, k_up, _, _, k_dn = _templates_dec(cfg)
-    _, _, e_up, e_down = _templates(cfg)
-    kc_up, kc_dn, ke = _refine_on(cfg, dev, _BF16)
+    with metrics.span("chirp.detect", samples):
+        B, T = samples.shape
+        dev = samples.device
+        L = cfg.chirp_samples
+        gap = cfg.gap_samples
+        D = DECIM
+        _, _, k_up, _, _, k_dn = _templates_dec(cfg)
+        _, _, e_up, e_down = _templates(cfg)
+        kc_up, kc_dn, ke = _refine_on(cfg, dev, _BF16)
 
-    # Coarse search on the decimated grid: one FFT of the decimated signal,
-    # both templates through one batched inverse FFT.
-    xd = _decimate(cfg, samples)                                # [B, Td]
-    Td = xd.shape[-1]
-    n_pos = T - L + 1
-    n_pos_d = (n_pos + D - 1) // D
-    n_fft = 1 << int(Td - 1).bit_length()
-    S = torch.fft.fft(xd, n=n_fft, dim=-1)
-    c2 = torch.fft.ifft(S[:, None, :] * _template_filter(cfg, n_fft, dev),
-                        dim=-1)                                  # [B, 2, n_fft]
-    num_up = c2[:, 0, :n_pos_d].abs() * k_up
-    num_dn = c2[:, 1, :n_pos_d].abs() * k_dn
-    energy = _window_sum_dec(samples, L, n_pos_d)
-    den_up = torch.sqrt(torch.clamp(energy * e_up, min=0.0))
-    den_dn = torch.sqrt(torch.clamp(energy * e_down, min=0.0))
-    corr_up = torch.where(den_up > 1e-10, num_up / den_up, 0.0)  # [B, n_pos_d]
-    corr_dn = torch.where(den_dn > 1e-10, num_dn / den_dn, 0.0)
-    if _BF16:
-        # Threshold-margin quantities only: the selection below (masks,
-        # maxima, comparisons with Python floats, which torch rounds to the
-        # tensor's dtype as JAX does) runs in bfloat16.
-        corr_up = corr_up.to(torch.bfloat16)
-        corr_dn = corr_dn.to(torch.bfloat16)
+        # Coarse search on the decimated grid: one FFT of the decimated signal,
+        # both templates through one batched inverse FFT.
+        xd = _decimate(cfg, samples)                                # [B, Td]
+        Td = xd.shape[-1]
+        n_pos = T - L + 1
+        n_pos_d = (n_pos + D - 1) // D
+        n_fft = 1 << int(Td - 1).bit_length()
+        S = torch.fft.fft(xd, n=n_fft, dim=-1)
+        c2 = torch.fft.ifft(                                    # [B, 2, n_fft]
+            S[:, None, :] * _template_filter(cfg, n_fft, dev), dim=-1)
+        num_up = c2[:, 0, :n_pos_d].abs() * k_up
+        num_dn = c2[:, 1, :n_pos_d].abs() * k_dn
+        energy = _window_sum_dec(samples, L, n_pos_d)
+        den_up = torch.sqrt(torch.clamp(energy * e_up, min=0.0))
+        den_dn = torch.sqrt(torch.clamp(energy * e_down, min=0.0))
+        # [B, n_pos_d] each
+        corr_up = torch.where(den_up > 1e-10, num_up / den_up, 0.0)
+        corr_dn = torch.where(den_dn > 1e-10, num_dn / den_dn, 0.0)
+        if _BF16:
+            # Threshold-margin quantities only: the selection below (masks,
+            # maxima, comparisons with Python floats, which torch rounds to the
+            # tensor's dtype as JAX does) runs in bfloat16.
+            corr_up = corr_up.to(torch.bfloat16)
+            corr_dn = corr_dn.to(torch.bfloat16)
 
-    pos_d = torch.arange(n_pos_d, device=dev)
-    # The reference searches pos < T - L (exclusive of the last).
-    search_mask = pos_d * D < (T - L)
-    cu = torch.where(search_mask[None, :], corr_up, -1.0)
-    c2s = cfg.cfo_to_samples
-    thr_grid = GRID_LOSS * threshold
-    rel = torch.arange(-512 // D, 512 // D + 1, device=dev)
+        pos_d = torch.arange(n_pos_d, device=dev)
+        # The reference searches pos < T - L (exclusive of the last).
+        search_mask = pos_d * D < (T - L)
+        cu = torch.where(search_mask[None, :], corr_up, -1.0)
+        c2s = cfg.cfo_to_samples
+        thr_grid = GRID_LOSS * threshold
+        rel = torch.arange(-512 // D, 512 // D + 1, device=dev)
 
-    def up_candidate(strong):
-        """Earliest strong crossing -> local grid peak (+-512 full-rate)."""
-        first = _first_true(strong)
-        widx = torch.clamp(first[:, None] + rel[None, :], 0, n_pos_d - 1)
-        peak = torch.argmax(cu.gather(1, widx), dim=-1, keepdim=True)
-        return widx.gather(1, peak)[:, 0]
+        def up_candidate(strong):
+            """Earliest strong crossing -> local grid peak (+-512
+            full-rate)."""
+            first = _first_true(strong)
+            widx = torch.clamp(first[:, None] + rel[None, :], 0, n_pos_d - 1)
+            peak = torch.argmax(cu.gather(1, widx), dim=-1, keepdim=True)
+            return widx.gather(1, peak)[:, 0]
 
-    def down_candidate(up_pos):
-        """The down-chirp search window (chirp_sync.hpp:420-438) in
-        full-rate arithmetic, masked onto the D grid."""
-        start = up_pos + L // 2
-        expected = up_pos + L + gap
-        end = torch.clamp(expected + 2 * L, max=T)
-        end = torch.where(end <= start + L, torch.clamp(start + 2 * L, max=T),
-                          end)
-        pfull = pos_d[None, :] * D
-        dn_mask = (pfull >= start[:, None]) & (pfull + L <= end[:, None]) \
-            & (pfull < (T - L))
-        cd = torch.where(dn_mask, corr_dn, -1.0)
-        down_pos_d = torch.argmax(cd, dim=-1, keepdim=True)
-        return down_pos_d[:, 0], cd.gather(1, down_pos_d)[:, 0]
+        def down_candidate(up_pos):
+            """The down-chirp search window (chirp_sync.hpp:420-438) in
+            full-rate arithmetic, masked onto the D grid."""
+            start = up_pos + L // 2
+            expected = up_pos + L + gap
+            end = torch.clamp(expected + 2 * L, max=T)
+            end = torch.where(end <= start + L,
+                              torch.clamp(start + 2 * L, max=T), end)
+            pfull = pos_d[None, :] * D
+            dn_mask = (pfull >= start[:, None]) & (pfull + L <= end[:, None]) \
+                & (pfull < (T - L))
+            cd = torch.where(dn_mask, corr_dn, -1.0)
+            down_pos_d = torch.argmax(cd, dim=-1, keepdim=True)
+            return down_pos_d[:, 0], cd.gather(1, down_pos_d)[:, 0]
 
-    # The EARLIEST chirp wins, not the globally strongest.  Rule A: the
-    # earliest crossing of the absolute threshold (keeps a faded early
-    # frame); rule B: of max(threshold, 0.7 * global max) (robust to a
-    # noise spike).  A wins when it fully validates.
-    gmax = cu.amax(-1)
-    strong_a = cu >= thr_grid
-    # 0.7 in cu's dtype: torch multiplies by an unrounded Python float,
-    # JAX by the constant rounded to the array's dtype.
-    rel_b = float(torch.tensor(0.7, dtype=cu.dtype))
-    strong_b = cu >= torch.clamp(rel_b * gmax[:, None], min=thr_grid)
-    upd2 = torch.stack([up_candidate(strong_a), up_candidate(strong_b)], 1)
-    up_pos2, up_corr2 = _refine_full(cfg, samples, upd2 * D, kc_up, ke, e_up)
-    any2 = torch.stack([strong_a.any(-1), strong_b.any(-1)], 1)
-    up_found2 = any2 & (up_corr2 >= threshold)
+        # The EARLIEST chirp wins, not the globally strongest.  Rule A: the
+        # earliest crossing of the absolute threshold (keeps a faded early
+        # frame); rule B: of max(threshold, 0.7 * global max) (robust to a
+        # noise spike).  A wins when it fully validates.
+        gmax = cu.amax(-1)
+        strong_a = cu >= thr_grid
+        # 0.7 in cu's dtype: torch multiplies by an unrounded Python float,
+        # JAX by the constant rounded to the array's dtype.
+        rel_b = float(torch.tensor(0.7, dtype=cu.dtype))
+        strong_b = cu >= torch.clamp(rel_b * gmax[:, None], min=thr_grid)
+        upd2 = torch.stack([up_candidate(strong_a), up_candidate(strong_b)],
+                           1)
+        up_pos2, up_corr2 = _refine_full(cfg, samples, upd2 * D, kc_up, ke,
+                                         e_up)
+        any2 = torch.stack([strong_a.any(-1), strong_b.any(-1)], 1)
+        up_found2 = any2 & (up_corr2 >= threshold)
 
-    dnd_a, dng_a = down_candidate(up_pos2[:, 0])
-    dnd_b, dng_b = down_candidate(up_pos2[:, 1])
-    down_pos2, down_corr2 = _refine_full(
-        cfg, samples, torch.stack([dnd_a, dnd_b], 1) * D, kc_dn, ke, e_down)
-    down_grid2 = torch.stack([dng_a, dng_b], 1)
-    down_found2 = (down_grid2 >= thr_grid) & (down_corr2 >= threshold)
+        dnd_a, dng_a = down_candidate(up_pos2[:, 0])
+        dnd_b, dng_b = down_candidate(up_pos2[:, 1])
+        down_pos2, down_corr2 = _refine_full(
+            cfg, samples, torch.stack([dnd_a, dnd_b], 1) * D, kc_dn, ke,
+            e_down)
+        down_grid2 = torch.stack([dng_a, dng_b], 1)
+        down_found2 = (down_grid2 >= thr_grid) & (down_corr2 >= threshold)
 
-    # CFO from the gap error (fs/k samples per Hz on each chirp), times
-    # the float32 reciprocal: the reference's compiled division by this
-    # constant rounds so, and a CUDA division by a host scalar does too.
-    gap_error2 = (down_pos2 - up_pos2 - (L + gap)).to(torch.float32)
-    cfo_hz2 = gap_error2 * float(np.float32(1.0) / np.float32(2.0 * c2s))
-    cfo_ok2 = cfo_hz2.abs() <= MAX_REASONABLE_CFO_HZ
-    success2 = up_found2 & down_found2 & cfo_ok2
+        # CFO from the gap error (fs/k samples per Hz on each chirp), times
+        # the float32 reciprocal: the reference's compiled division by this
+        # constant rounds so, and a CUDA division by a host scalar does too.
+        gap_error2 = (down_pos2 - up_pos2 - (L + gap)).to(torch.float32)
+        cfo_hz2 = gap_error2 * float(np.float32(1.0) / np.float32(2.0 * c2s))
+        cfo_ok2 = cfo_hz2.abs() <= MAX_REASONABLE_CFO_HZ
+        success2 = up_found2 & down_found2 & cfo_ok2
 
-    use_a = success2[:, 0]
-    sel = torch.where(use_a, 0, 1)[:, None]
+        use_a = success2[:, 0]
+        sel = torch.where(use_a, 0, 1)[:, None]
 
-    def pick2(arr2):
-        return arr2.gather(1, sel)[:, 0]
+        def pick2(arr2):
+            return arr2.gather(1, sel)[:, 0]
 
-    success = pick2(success2)
-    up_pos = pick2(up_pos2)
-    up_corr = pick2(up_corr2)
-    down_pos = pick2(down_pos2)
-    down_corr = pick2(down_corr2)
-    down_found = pick2(down_found2)
-    cfo_hz = pick2(cfo_hz2)
-    strong = torch.where(use_a[:, None], strong_a, strong_b)
+        success = pick2(success2)
+        up_pos = pick2(up_pos2)
+        up_corr = pick2(up_corr2)
+        down_pos = pick2(down_pos2)
+        down_corr = pick2(down_corr2)
+        down_found = pick2(down_found2)
+        cfo_hz = pick2(cfo_hz2)
+        strong = torch.where(use_a[:, None], strong_a, strong_b)
 
-    # The first strong crossing AFTER the chosen chirp (the next frame's):
-    # consumers cap consumption there.  The D-grid crossing can read up to
-    # D-1 samples late, so the cap is biased early.
-    later = strong & (pos_d[None, :] * D >= (up_pos + L)[:, None])
-    i32 = torch.int32
-    next_up = torch.where(later.any(-1),
-                          torch.clamp(_first_true(later) * D - (D - 1), min=0),
-                          -1).to(i32)
+        # The first strong crossing AFTER the chosen chirp (the next frame's):
+        # consumers cap consumption there.  The D-grid crossing can read up to
+        # D-1 samples late, so the cap is biased early.
+        later = strong & (pos_d[None, :] * D >= (up_pos + L)[:, None])
+        i32 = torch.int32
+        next_up = torch.where(
+            later.any(-1),
+            torch.clamp(_first_true(later) * D - (D - 1), min=0), -1).to(i32)
 
-    up_start = torch.round(up_pos + cfo_hz * c2s).to(i32)
-    down_start = torch.round(down_pos - cfo_hz * c2s).to(i32)
+        up_start = torch.round(up_pos + cfo_hz * c2s).to(i32)
+        down_start = torch.round(down_pos - cfo_hz * c2s).to(i32)
 
-    # The earliest strong up-template crossing regardless of validation (a
-    # partially arrived chirp), biased early like next_up.
-    above = cu >= thr_grid
-    first_strong = torch.where(
-        above.any(-1), torch.clamp(_first_true(above) * D - (D - 1), min=0),
-        -1).to(i32)
+        # The earliest strong up-template crossing regardless of validation (a
+        # partially arrived chirp), biased early like next_up.
+        above = cu >= thr_grid
+        first_strong = torch.where(
+            above.any(-1),
+            torch.clamp(_first_true(above) * D - (D - 1), min=0), -1).to(i32)
 
-    return {
-        "success": success,
-        "first_strong_up": first_strong,
-        "cfo_hz": torch.where(success, cfo_hz, 0.0),
-        "up_chirp_start": up_start,
-        "down_chirp_start": down_start,
-        "up_correlation": up_corr,
-        "down_correlation": torch.where(down_found, down_corr, 0.0),
-        "next_up_start": next_up,
-    }
+        return {
+            "success": success,
+            "first_strong_up": first_strong,
+            "cfo_hz": torch.where(success, cfo_hz, 0.0),
+            "up_chirp_start": up_start,
+            "down_chirp_start": down_start,
+            "up_correlation": up_corr,
+            "down_correlation": torch.where(down_found, down_corr, 0.0),
+            "next_up_start": next_up,
+        }
 
 
 def training_start(cfg: ChirpConfig, down_chirp_start):

@@ -71,6 +71,10 @@ kernel and gives the golden bytes; ``ops/dsp`` and the waterfall on the
 card within rtol 1e-4, atol 1e-5 (waterfall: rtol 1e-5 plus 1e-3 dB) of
 the CPU; two stations on the card connect and exchange a message each
 way through both kernels.
+
+The program's spans (``utils/metrics.span``): one step of each benchmark
+entry kind with the spans on records every span's CUDA events without a
+synchronisation, each child's device ms within its parent's.
 """
 
 import os
@@ -1328,3 +1332,41 @@ def test_engine_dpsk_search_goes_through_the_kernel(dev):
     assert cons == cons_c and len(got) == len(want) == 1
     assert got[0].frame_bytes == want[0].frame_bytes == frame
     assert got[0].waveform == F.WaveformMode.DPSK
+
+
+TRACED_ENTRIES = {"presynced": ("ofdm_chirp-presynced-17db", 256, 4),
+                  "acquired": ("mcdpsk_l10-chirp-acquire-5db-b2048", 64, 7)}
+
+
+@pytest.mark.parametrize("path", sorted(TRACED_ENTRIES))
+def test_traced_step_on_the_card(dev, path):
+    """One step of each benchmark entry kind at a small batch with the
+    program's spans on: every span records its CUDA events without a
+    synchronisation, and no child's device ms exceed its parent's."""
+    import dataclasses
+    from benchmark import harness, traffic as BT
+    from projectultra_tpu_torch.utils import metrics
+    name, batch, n_spans = TRACED_ENTRIES[path]
+    cell = harness.load_cell(name)
+    mix = dataclasses.replace(cell.traffic, batch=batch)
+    entry = cell.entry.Entry(cell.config, mix, dev)
+    info, noise = BT.inputs(mix, entry.k, entry.T, 2**31 + 19, 0, dev)
+    with entry.precision():
+        entry.step(info, noise, harness.no_mark)
+        torch.cuda.synchronize()
+        with metrics.tracing() as rec:
+            rec.next_batch()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                entry.step(info, noise, harness.no_mark)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            spans = rec.drain()
+    torch.cuda.synchronize()
+    assert len(spans) == n_spans
+    by_id = {s.id: s for s in spans}
+    for s in spans:
+        assert s.device_ms() > 0, s.name
+        if s.parent is not None:
+            assert s.device_ms() <= by_id[s.parent].device_ms(), s.name
+

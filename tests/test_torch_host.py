@@ -270,6 +270,158 @@ def test_device_trace_writes_a_trace(tmp_path):
     assert prof is not None and (tmp_path / "trace.json").stat().st_size > 0
 
 
+# The program's spans (``utils/metrics.span``) on each path the benchmark
+# drives: (name, parent's name) in the order they open, and the harness
+# span each lies in.
+SPAN_TREES = {
+    "presynced": [("noise.awgn", None), ("ofdm.rx", None),
+                  ("ofdm.demodulate", "ofdm.rx"), ("ldpc.decode", "ofdm.rx")],
+    "acquired": [("mcdpsk.tx", None), ("noise.awgn", None),
+                 ("mcdpsk.rx", None), ("chirp.detect", "mcdpsk.rx"),
+                 ("chirp.decimate", "chirp.detect"),
+                 ("mcdpsk.demodulate", "mcdpsk.rx"),
+                 ("ldpc.decode", "mcdpsk.rx")],
+}
+HARNESS_SPAN = {"mcdpsk.tx": "tx", "noise.awgn": "channel"}
+ENTRY_CELLS = {"presynced": ("ofdm_chirp-presynced-17db", 8),
+               "acquired": ("mcdpsk_l10-chirp-acquire-5db-b2048", 2)}
+
+
+def _entry_step(path):
+    """A benchmark entry kind at a tiny batch and its first window step's
+    inputs, on the CPU: (entry, info, noise)."""
+    from benchmark import harness, traffic as BT
+    name, batch = ENTRY_CELLS[path]
+    cell = harness.load_cell(name)
+    mix = dataclasses.replace(cell.traffic, batch=batch)
+    entry = cell.entry.Entry(cell.config, mix, torch.device("cpu"))
+    info, noise = BT.inputs(mix, entry.k, entry.T, 2**31 + 17, 0,
+                            torch.device("cpu"))
+    return entry, info, noise
+
+
+def _step(entry, info, noise, mark=lambda _name: None):
+    with entry.precision():
+        return entry.step(info, noise, mark)
+
+
+def _tree(spans):
+    names = {s.id: s.name for s in spans}
+    return [(s.name, names.get(s.parent)) for s in spans]
+
+
+def test_span_records_nothing_outside_tracing(monkeypatch):
+    def boom(*_a, **_k):
+        raise AssertionError("made while tracing is off")
+    monkeypatch.setattr(torch.cuda, "Event", boom)
+    monkeypatch.setattr(torch.profiler, "record_function", boom)
+    assert TME._recorder is None
+    with TME.span("ldpc.decode", torch.ones(2)) as rec:
+        assert rec is None
+    for path in SPAN_TREES:
+        _step(*_entry_step(path))
+    assert TME._recorder is None
+
+
+@pytest.mark.parametrize("path", sorted(SPAN_TREES))
+def test_spans_change_no_output(path):
+    entry, info, noise = _entry_step(path)
+    off = _step(entry, info, noise)
+    with TME.tracing():
+        on = _step(entry, info, noise)
+    for key in ("tx", "rx", "bits", "ok", "iters"):
+        assert torch.equal(off[key], on[key]), key
+    for key, value in off.get("det", {}).items():
+        assert torch.equal(value, on["det"][key]), key
+
+
+@pytest.mark.parametrize("path", sorted(SPAN_TREES))
+def test_span_tree_of_a_step(path):
+    """One step drains exactly its path's spans: names, parents, one batch
+    id, each host interval inside its parent's; no CUDA events on the
+    CPU."""
+    entry, info, noise = _entry_step(path)
+    with TME.tracing() as rec:
+        batch = rec.next_batch()
+        _step(entry, info, noise)
+        spans = rec.drain()
+        assert rec.drain() == []
+    assert TME._recorder is None
+    assert _tree(spans) == SPAN_TREES[path]
+    assert {s.batch for s in spans} == {batch}
+    by_id = {s.id: s for s in spans}
+    for s in spans:
+        assert s.host_start_ns <= s.host_end_ns
+        assert s.start is None and s.end is None and s.device_ms() is None
+        if s.parent is not None:
+            p = by_id[s.parent]
+            assert p.host_start_ns <= s.host_start_ns
+            assert s.host_end_ns <= p.host_end_ns
+
+
+def test_recorder_batches_nesting_and_errors():
+    with TME.tracing() as rec:
+        with TME.tracing() as inner:
+            assert inner is rec
+        with TME.span("a"):
+            with TME.span("b"):
+                pass
+        rec.next_batch()
+        with pytest.raises(ValueError):
+            with TME.span("c"):
+                raise ValueError("the stage failed")
+        with TME.span("d"):
+            pass
+        spans = rec.drain()
+    assert _tree(spans) == [("a", None), ("b", "a"), ("c", None),
+                            ("d", None)]
+    assert [s.batch for s in spans] == [0, 0, 1, 1]
+    assert all(s.host_ms() >= 0 for s in spans)
+    assert TME._recorder is None
+
+
+@pytest.mark.parametrize("path", sorted(SPAN_TREES))
+def test_spans_in_a_cpu_profile(path):
+    """Under ``torch.profiler`` each program span is a user annotation,
+    once, inside the harness span ("tx", "channel" or "rx") of the step
+    that ran it."""
+    from torch.autograd import DeviceType
+    from benchmark import harness
+    entry, info, noise = _entry_step(path)
+    marks = harness.Marks(torch.device("cpu"))
+    with TME.tracing(), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        marks.begin()
+        out = _step(entry, info, noise, marks)
+        marks("tally")
+        entry.tally(out, info)
+        marks.end()
+    ranges = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+              for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CPU and e.is_user_annotation()]
+    program = [r for r in ranges if r[0] in dict(SPAN_TREES[path])]
+    assert sorted(r[0] for r in program) == sorted(
+        n for n, _ in SPAN_TREES[path])
+    harness_spans = [r for r in ranges if r[0] in marks.names]
+    for name, a, b in program:
+        around = [h for h, ha, hb in harness_spans if ha <= a and b <= hb]
+        assert around == [HARNESS_SPAN.get(name, "rx")], name
+
+
+def test_device_trace_holds_the_program_spans(tmp_path):
+    import json
+    from projectultra_tpu_torch.ops import ldpc as TLO
+    code = TL.get_code(TC.CodeRate.R1_2)
+    graph = TLO.graph_for(code, torch.device("cpu"))
+    llrs = torch.full((2, code.n), 4.0)
+    with TME.device_trace(str(tmp_path)):
+        TLO.decode_totals(graph, llrs)
+    assert TME._recorder is None
+    events = json.loads((tmp_path / "trace.json").read_text())
+    names = {e.get("name") for e in events["traceEvents"]}
+    assert "ldpc.decode" in names
+
+
 def _frame_buffer(rng, fade=False):
     """Noise, a 1.5 s 'frame' (a multi-tone burst, optionally with a slow
     fading envelope) and noise after it."""
