@@ -81,7 +81,7 @@ checks them:
 Phases:
 
 1. prints the card's name and power limit; no CUDA device -> exit 1;
-2. builds both kernels from ``projectultra_tpu_torch/csrc`` (one nvcc per
+2. builds every kernel from ``projectultra_tpu_torch/csrc`` (one nvcc per
    source, started together);
 3. holds the LDPC kernel against the plain PyTorch decoder on the card
    (bits, ok flags and iteration counts equal on every lane) on the golden
@@ -115,8 +115,13 @@ Phases:
    5 dB chirp-cell buffer (success and every position identical, cfo
    within 1e-3 Hz);
 9. runs the chirp cell: ok rate >= 0.99 with exact info bits on ok lanes
-   over 32 buffers, the LDPC kernel's launch counter grown, 64 lanes equal
-   to the CPU path; times it (frames/s best of 2 repeats with noise
+   over 32 buffers, the LDPC kernel's launch counter grown and the
+   decimation kernel's by one a buffer, 64 lanes equal to the CPU path;
+   holds the decimation kernel (``csrc/chirp_decimate.cu``) against the
+   plain conv path within 1e-6 of the peak (1e-5 in the bf16 mode) at the
+   acquired benchmark cell's B = 2,048 x T = 83,808 and at the engine's
+   B = 1 view of 262,144 samples, and times both there beside the
+   kernel's bound; times the cell (frames/s best of 2 repeats with noise
    untimed, per stage, idle share);
 10. holds the LDPC kernel against the plain decoder on the chirp cell's
     R1/4 5 dB LLRs (every lane equal) and times both;
@@ -311,8 +316,8 @@ from projectultra_tpu_torch.ofdm import delay_fit as DF
 from projectultra_tpu_torch.ofdm import demodulator as D
 from projectultra_tpu_torch.ofdm import modulator as M
 from projectultra_tpu_torch.ofdm import pipeline as P
-from projectultra_tpu_torch.ops import (cuda_build, cuda_dpsk, cuda_ldpc,
-                                        cuda_sc)
+from projectultra_tpu_torch.ops import (cuda_build, cuda_decimate,
+                                        cuda_dpsk, cuda_ldpc, cuda_sc)
 from projectultra_tpu_torch.ops import dpsk_score as DS
 from projectultra_tpu_torch.ops import ldpc as ldpc_ops
 from projectultra_tpu_torch.ops.sc_windows import sc_windows_plain
@@ -377,6 +382,11 @@ KERNELS = {  # name -> (wrapper module, TPU kernel it replaces)
     "dpsk_score": (cuda_dpsk,
                    "projectultra_tpu/psk/dpsk.py:305-317 find_preamble's "
                    "differential score (an XLA fusion)"),
+    # Chirp acquisition's decimation: XLA's convolution in the JAX package,
+    # five eager operators around cuDNN's conv in the plain version.
+    "chirp_decimate": (cuda_decimate,
+                       "projectultra_tpu/sync/chirp.py:174-200 _decimate's "
+                       "polyphase conv (XLA)"),
 }
 BF16 = torch.bfloat16
 
@@ -540,6 +550,14 @@ def dpsk_bound(B: int, L: int, O: int):
                  B * span * DPSK_OPS_PER_SAMPLE + B * O * DPSK_OPS_PER_OFFSET)
 
 
+def decimate_bound(B: int, T: int):
+    """The decimation's bound: the B*T samples read once, the B*ceil(T/8)
+    complex outputs written once; 2 * 128 fused multiply-adds (2 float32
+    operations each) an output."""
+    Tb = -(-T // CH.DECIM)
+    return bound(B * T * 4 + B * Tb * 8, B * Tb * 2 * CH.DECIM_TAPS * 2)
+
+
 #: (kernel, shape, kernel ms, bound ms, basis) of every timed shape.
 SHAPES: list = []
 
@@ -549,7 +567,8 @@ SHAPES: list = []
 KERNEL_EVENT = {"ldpc_minsum": "ldpc_minsum_kernel",
                 "ldpc_minsum_bf16": "ldpc_minsum_kernel",
                 "sc_windows": "sc_windows_kernel",
-                "dpsk_score": "dpsk_score_kernel"}
+                "dpsk_score": "dpsk_score_kernel",
+                "chirp_decimate": "chirp_decimate_kernel"}
 
 
 def report_shape(name: str, shape: str, fn, reps: int, bound_ms: float,
@@ -694,8 +713,9 @@ def source_of(name: str) -> str:
 
 
 def phase_build() -> None:
-    """Both kernel libraries (the LDPC one holds both of its
-    instantiations), one nvcc each, started together."""
+    """Every kernel library (the LDPC one holds both of its
+    instantiations, the decimation one both of its own), one nvcc each,
+    started together."""
     t0 = time.perf_counter()
     mods = {mod for mod, _ in KERNELS.values()}
     with ThreadPoolExecutor(len(mods)) as pool:
@@ -1259,21 +1279,25 @@ def check_chirp(outs: list, info: torch.Tensor, label: str) -> float:
     return ok_rate
 
 
-def phase_chirp_path(dev: torch.device) -> torch.Tensor:
+def phase_chirp_path(dev: torch.device) -> tuple:
     """The chirp cell over CHIRP_BUFFERS fresh 5 dB buffers; returns the
-    first buffer."""
+    first buffer and the decimation kernel's launches."""
     info, tx = chirp_tx(dev, 31)
     rx_all = noisy_buffers(tx, torch.Generator(device=dev).manual_seed(33),
                            CHIRP_BUFFERS, CHIRP_SNR_DB)
     torch.cuda.synchronize()
 
-    cuda_ldpc.launches = 0
+    cuda_ldpc.launches = cuda_decimate.launches = 0
     outs = [decode_chirp(rx) for rx in rx_all]
     torch.cuda.synchronize()
-    launches = cuda_ldpc.launches
-    print(f"chirp path kernel launches: {{'ldpc_minsum': {launches}}}",
-          flush=True)
-    require(launches > 0, "the chirp path did not launch the LDPC kernel")
+    launches = {"ldpc_minsum": cuda_ldpc.launches,
+                "chirp_decimate": cuda_decimate.launches}
+    print(f"chirp path kernel launches: {launches}", flush=True)
+    require(launches["ldpc_minsum"] > 0,
+            "the chirp path did not launch the LDPC kernel")
+    require(launches["chirp_decimate"] == CHIRP_BUFFERS,
+            "the chirp path did not decimate through the kernel, once a "
+            "buffer")
     check_chirp(outs, info, f"{CHIRP_SNR_DB} dB")
 
     # 64 lanes of the first buffer through the CPU path.
@@ -1287,7 +1311,57 @@ def phase_chirp_path(dev: torch.device) -> torch.Tensor:
     require(same_det and bool(torch.equal(out[:CPU_LANES].cpu()[both],
                                           cpu[0][both])),
             "the chirp path on the card differs from the CPU path")
-    return rx_all[0]
+    return rx_all[0], launches["chirp_decimate"]
+
+
+def compare_decimation(x: torch.Tensor, label: str, bf16: bool = False
+                       ) -> float:
+    """The decimation kernel (one launch through ``_decimate``) against the
+    plain conv path on the same card tensor; returns the max abs difference
+    over the plain path's peak (within 1e-6; 1e-5 in the bf16 mode)."""
+    with CH.bf16_mode(bf16):
+        before = cuda_decimate.launches
+        got = CH._decimate(CC, x)
+        launched = cuda_decimate.launches - before
+        want = CH._decimate_plain(CC, x)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    limit = 1e-5 if bf16 else 1e-6
+    mode = ", bf16" if bf16 else ""
+    print(f"chirp decimation kernel vs plain [{label}{mode}] B={x.shape[0]} "
+          f"T={x.shape[1]}: max abs diff / peak {err!r} "
+          f"(limit {limit}), launches {launched}", flush=True)
+    require(launched == 1 and err <= limit,
+            f"the decimation kernel differs from the plain path ({label})")
+    return err
+
+
+def phase_chirp_decimation(card: str, rx: torch.Tensor) -> tuple:
+    """The decimation kernel against the plain conv path, and timed beside
+    it and its bound, at the acquired benchmark cell's B = 2,048 x
+    T = 83,808 (the chirp buffer's rows repeated) and at the engine's B = 1
+    search view of ACQ_VIEW_CAP = 262,144 samples; the bf16 mode at the
+    cell.  Returns the cell's (max error, call ms, plain ms, bound ms,
+    basis)."""
+    cell = rx.repeat(-(-2048 // rx.shape[0]), 1)[:2048].contiguous()
+    view = cell[:4].reshape(1, -1)[:, :262144].contiguous()
+    rows = []
+    for label, x in (("acquired cell", cell), ("engine view", view)):
+        err = compare_decimation(x, label)
+        B, T = x.shape
+        k_ms, p_ms = time_pair(lambda: CH._decimate(CC, x),
+                               lambda: CH._decimate_plain(CC, x), 20, 5)
+        plan = cuda_decimate.card_plan(B, T, x.device)
+        print(f"chirp decimation [{label}] B={B} T={T}: kernel {k_ms!r} ms, "
+              f"plain (two pads, the polyphase copy, cuDNN's conv, the "
+              f"complex build) {p_ms!r} ms (calls, CUDA events) on {card}; "
+              f"launch plan {plan}", flush=True)
+        bound_ms, by = decimate_bound(B, T)
+        report_shape("chirp_decimate", f"{label}, B={B}, T={T}",
+                     lambda: CH._decimate(CC, x), 20, bound_ms, by, card)
+        rows.append((err, k_ms, p_ms, bound_ms, by))
+    compare_decimation(cell, "acquired cell", bf16=True)
+    return rows[0]
 
 
 def chirp_stages(rx_all: list) -> dict:
@@ -3682,7 +3756,8 @@ def main() -> None:
     _, tx = chirp_tx(dev, 30)
     phase_chirp_detection(noisy_buffers(
         tx, torch.Generator(device=dev).manual_seed(35), 1, CHIRP_SNR_DB)[0])
-    rx = phase_chirp_path(dev)
+    rx, decimate_launches = phase_chirp_path(dev)
+    decimate_row = phase_chirp_decimation(card, rx)
     phase_chirp_timing(dev, card)
     phase_chirp_ldpc(dev, card, rx)
     phase_ofdm_after_chirp(dev)
@@ -3716,14 +3791,17 @@ def main() -> None:
     # launches: each kernel's count in the run of its own slice's path
     # (the LDPC kernel's in the slice-1 path, its bf16 instantiation's in
     # that path with bf16 messages; the counts of the Cox and chirp paths
-    # are printed above; the DPSK score kernel's in the DPSK medium path).
-    # ms and bound_ms at that path's shape; no single PyTorch call computes
-    # any of the four (library_ms null).
+    # are printed above; the DPSK score kernel's in the DPSK medium path;
+    # the decimation kernel's in the chirp path, ms and bound_ms at the
+    # acquired benchmark cell's shape).  ms and bound_ms at that path's
+    # shape; no single PyTorch call computes any of the five (library_ms
+    # null).
     rows = [("ldpc_minsum", ldpc_launches, ldpc_err, ldpc_ms, ldpc_plain_ms,
              ldpc_bound_ms, ldpc_by),
             ("sc_windows", cox_launches["sc_windows"], sc_err, sc_ms,
              sc_plain_ms, sc_bound_ms, sc_by),
-            ("ldpc_minsum_bf16", *bf16_row), ("dpsk_score", *dpsk_row)]
+            ("ldpc_minsum_bf16", *bf16_row), ("dpsk_score", *dpsk_row),
+            ("chirp_decimate", decimate_launches, *decimate_row)]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source_of(name),
          "replaces": KERNELS[name][1], "launches": launches,

@@ -20,9 +20,11 @@ so reported positions and correlations keep full-rate exactness:
   peak by +CFO*fs/k (k = chirp rate), so CFO = gap error / (2*fs/k).
 
 Everything is plain PyTorch (``torch.fft``, ``F.conv1d``, ``torch.matmul``,
-indexing) in float32 with TF32 off, and no branch reads the device: every
-decision is a tensor select.  Host tables are numpy functions, pinned
-array-equal to the JAX package's, and are cached per device.
+indexing) in float32 with TF32 off, but for the decimation of a CUDA
+tensor, which is one hand-written kernel (``ops/cuda_decimate.py``); no
+branch reads the device: every decision is a tensor select.  Host tables
+are numpy functions, pinned array-equal to the JAX package's, and are
+cached per device.
 
 The bf16 mode (``ULTRA_CHIRP_BF16=1`` when this module is imported, as the
 JAX package reads it; ``bf16_mode`` sets it for a block) rounds where the
@@ -47,6 +49,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops import cuda_decimate
 from ..ops.sc_windows import window_sum
 from ..utils import metrics
 
@@ -274,23 +277,35 @@ def _decimate(cfg: ChirpConfig, samples: torch.Tensor) -> torch.Tensor:
     """[B, T] real -> [B, ceil(T/D)] complex baseband at fs/D:
     y[m] = sum_k w[k] x[D*m + k - K/2] (zero outside [0, T)).
 
+    A CUDA tensor goes through the hand-written kernel
+    (``ops/cuda_decimate.py``, ``csrc/chirp_decimate.cu``: one launch that
+    reads each sample once); any other through ``_decimate_plain``."""
+    with metrics.span("chirp.decimate", samples):
+        if samples.device.type == "cuda":
+            return cuda_decimate.decimate_cuda(samples, _decim_filter(cfg),
+                                               bf16=_BF16)
+        return _decimate_plain(cfg, samples)
+
+
+def _decimate_plain(cfg: ChirpConfig, samples: torch.Tensor) -> torch.Tensor:
+    """``_decimate`` in plain PyTorch, the CPU path and the kernel's oracle.
+
     The JAX package's polyphase form: a stride-1 cross-correlation
     (``F.conv1d``, taps not flipped) over x reshaped to [B, D(phase), T/D]
     with K/D taps and the asymmetric padding (K/D//2, K/D - 1 - K/D//2).
     (An unfold + matmul over 8-strided 128-sample windows computes the same
     sum; on the H100 it was the slower of the two, PERF.md.)"""
-    with metrics.span("chirp.decimate", samples):
-        D = DECIM
-        B, T = samples.shape
-        Tb = -(-T // D)
-        kern = _decim_kernel(cfg, samples.device)
-        kw = kern.shape[-1]
-        if _BF16:
-            samples, kern = _bf16(samples), _bf16(kern)
-        xp = F.pad(samples, (0, Tb * D - T))
-        xb = xp.reshape(B, Tb, D).transpose(1, 2)                # [B, D, Tb]
-        out = F.conv1d(F.pad(xb, (kw // 2, kw - 1 - kw // 2)), kern)
-        return torch.complex(out[:, 0], out[:, 1])
+    D = DECIM
+    B, T = samples.shape
+    Tb = -(-T // D)
+    kern = _decim_kernel(cfg, samples.device)
+    kw = kern.shape[-1]
+    if _BF16:
+        samples, kern = _bf16(samples), _bf16(kern)
+    xp = F.pad(samples, (0, Tb * D - T))
+    xb = xp.reshape(B, Tb, D).transpose(1, 2)                # [B, D, Tb]
+    out = F.conv1d(F.pad(xb, (kw // 2, kw - 1 - kw // 2)), kern)
+    return torch.complex(out[:, 0], out[:, 1])
 
 
 def _window_sum_dec(samples: torch.Tensor, L: int, n_pos_d: int) -> torch.Tensor:

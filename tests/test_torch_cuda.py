@@ -35,11 +35,21 @@ detection through the kernel identical to detection through the plain
 version.  The acquisition-
 inclusive Cox step goes through both kernels and never synchronises.
 
-Chirp acquisition, MC-DPSK and the Watterson channel (plain PyTorch on the
-card): detection on the card equals the CPU path (success and positions
-identical, cfo within 1e-3 Hz); the bench's chirp step goes through the
-LDPC kernel and never synchronises; OFDM_CHIRP decodes behind a detected
-chirp; ``watterson_with`` on the card equals the CPU on the same normals.
+Chirp acquisition's decimation kernel against the plain conv path on the
+same card tensor, within 1e-6 of the peak (the two sum the 128 products in
+other orders): B = 64 x T = 83,808, ragged rows of T = 20,003 with
+unaligned starts, the engine's B = 1 view of 262,144 samples, rows shorter
+than the filter, chirp buffers and strided views; its bf16 instantiation
+against the plain bf16 path within 1e-5; at one NaN or +-inf sample
+non-finite exactly where the plain path is; one launch per
+``detect_dual_chirp``; its launch plan as the library computes it.
+
+Chirp acquisition, MC-DPSK and the Watterson channel (plain PyTorch on
+the card but for the decimation): detection on the card equals the CPU
+path (success and positions identical, cfo within 1e-3 Hz); the bench's
+chirp step goes through the LDPC kernel and never synchronises;
+OFDM_CHIRP decodes behind a detected chirp; ``watterson_with`` on the
+card equals the CPU on the same normals.
 
 The rest of the PHY: the window kernel at half = 512 (the 1,024-FFT
 plans); the LDPC kernel lane-exact at R3/4 and R5/6 (with and without
@@ -89,7 +99,8 @@ from projectultra_tpu_torch.config import (CodeRate, ModemConfig,  # noqa: E402
                                            Modulation)
 from projectultra_tpu_torch.fec import ldpc  # noqa: E402
 from projectultra_tpu_torch.ofdm import pipeline as TP  # noqa: E402
-from projectultra_tpu_torch.ops import cuda_dpsk, cuda_ldpc, cuda_sc  # noqa: E402
+from projectultra_tpu_torch.ops import (cuda_decimate, cuda_dpsk,  # noqa: E402
+                                        cuda_ldpc, cuda_sc)
 from projectultra_tpu_torch.ops import dpsk_score as TDS  # noqa: E402
 from projectultra_tpu_torch.ops import ldpc as T  # noqa: E402
 from projectultra_tpu_torch.ops import sc_windows as TSW  # noqa: E402
@@ -720,6 +731,90 @@ def test_decimation_on_the_card_is_float32(dev):
     got = TC._decimate(CC, x.to(dev)).cpu()
     ref = TC._decimate(CC, x)
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+DECIMATE_SHAPES = [(64, 83808), (3, 20003), (1, 262144), (2, 100)]
+
+
+def _decimate_both(x):
+    """(kernel, plain) decimation of the card tensor x; the kernel's call
+    through ``_decimate`` launches once."""
+    before = cuda_decimate.launches
+    got = TC._decimate(CC, x)
+    assert cuda_decimate.launches == before + 1
+    return got, TC._decimate_plain(CC, x)
+
+
+def _normals(dev, B, T, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((B, T), generator=g, device=dev)
+
+
+@pytest.mark.parametrize("B,T", DECIMATE_SHAPES)
+def test_decimation_kernel_equals_plain(dev, B, T):
+    """The kernel against cuDNN's conv path on the same card tensor: the
+    acquired cell's rows, ragged rows with unaligned starts, the engine's
+    B = 1 view and rows shorter than the filter; float32 rounding apart
+    (the two sum the 128 products in other orders)."""
+    got, want = _decimate_both(_normals(dev, B, T, B + T))
+    assert got.dtype == torch.complex64
+    assert got.shape == want.shape == (B, -(-T // 8))
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+def test_decimation_kernel_on_chirp_buffers_and_views(dev):
+    _, rx = _chirp_buffers(dev, 64)
+    got, want = _decimate_both(rx)
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    wide = _normals(dev, 5, 20011, 4)
+    for view in (wide[:, 3:20003], wide[2:3, 5:], wide[1:, 8:16008]):
+        got, want = _decimate_both(view)
+        assert float((got - want).abs().max()) \
+            <= 1e-6 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("B,T", [(64, 83808), (3, 20003)])
+def test_decimation_kernel_bf16_equals_plain_bf16(dev, B, T):
+    x = _normals(dev, B, T, 7 * T)
+    with TC.bf16_mode():
+        got, want = _decimate_both(x)
+    peak = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * peak
+    # the mode rounds: the float32 path differs from it by more
+    assert float((TC._decimate_plain(CC, x) - want).abs().max()) > 1e-5 * peak
+
+
+@pytest.mark.parametrize("kind", ["nan", "inf", "-inf"])
+@pytest.mark.parametrize("where", [0, 4000, 20002])
+def test_decimation_kernel_at_a_nonfinite_sample(dev, kind, where):
+    x = _normals(dev, 3, 20003, 11)
+    x[1, where] = float(kind)
+    got, want = _decimate_both(x)
+    for part in (torch.real, torch.imag):
+        g, w = part(got).cpu(), part(want).cpu()
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        assert torch.equal(torch.isinf(g), torch.isinf(w))
+        assert torch.equal(g[torch.isinf(g)], w[torch.isinf(w)])
+    assert not bool(torch.isfinite(want[1]).all())
+    assert bool(torch.isfinite(want[0]).all() & torch.isfinite(got[0]).all())
+
+
+def test_detection_launches_the_decimation_kernel_once(dev):
+    info, rx = _chirp_buffers(dev, 16)
+    before = cuda_decimate.launches
+    TC.detect_dual_chirp(CC, rx)
+    assert cuda_decimate.launches == before + 1
+    TMC.decode_chirp_batch(MC10, CodeRate.R1_4, rx)
+    assert cuda_decimate.launches == before + 2
+
+
+@pytest.mark.parametrize("B,T", DECIMATE_SHAPES + [(2048, 83808)])
+def test_decimation_kernel_plan(dev, B, T):
+    plan = cuda_decimate.card_plan(B, T, dev)
+    assert plan["library"] == {"blocks": plan["blocks"],
+                               "threads": plan["threads"],
+                               "shared_bytes": plan["shared_bytes"]}
+    assert plan["blocks_per_sm"] >= 4
 
 
 def test_chirp_detection_on_the_card_equals_the_cpu(dev):
