@@ -106,11 +106,18 @@ Phases:
    through the plain version (found and lts_start identical on every
    lane);
 7. runs the Cox path: ok rate >= 0.99 with exact info bits on ok lanes
-   over 32 buffers, both kernels' launch counters grown, a 30 Hz CFO
-   buffer at 20 dB by the same gate, and 64 lanes equal to the CPU path;
-   times it (frames/s, per stage, idle share), the window kernel
-   against its plain version and the LDPC kernel against the plain
-   decoder on a Cox buffer's LLRs (lane-exact, both timed);
+   over 32 buffers, the three kernels' launch counters grown (the
+   pilot-tracking kernel's once a symbol at each replay of the scan's
+   CUDA graph), a 30 Hz CFO buffer at 20 dB by the same gate, and 64
+   lanes equal to the CPU path; times it (frames/s, per stage, idle
+   share), the window kernel against its plain version and the LDPC
+   kernel against the plain decoder on a Cox buffer's LLRs (lane-exact,
+   both timed); holds the pilot-tracking kernel (``csrc/pilot_track.cu``)
+   to the scan's PyTorch step at the Cox benchmark cell's B = 2,048 and
+   the engine's B = 1 (LLRs within 2e-3 and signs equal on all but at
+   most 0.2% of the lanes, those a near-tie sent down another branch)
+   and times one symbol's launch against that step and the kernel's
+   bound;
 8. chirp detection on the card against the CPU path on 64 lanes of a
    5 dB chirp-cell buffer (success and every position identical, cfo
    within 1e-3 Hz);
@@ -317,7 +324,8 @@ from projectultra_tpu_torch.ofdm import demodulator as D
 from projectultra_tpu_torch.ofdm import modulator as M
 from projectultra_tpu_torch.ofdm import pipeline as P
 from projectultra_tpu_torch.ops import (cuda_build, cuda_decimate,
-                                        cuda_dpsk, cuda_ldpc, cuda_sc)
+                                        cuda_dpsk, cuda_ldpc, cuda_sc,
+                                        cuda_track)
 from projectultra_tpu_torch.ops import dpsk_score as DS
 from projectultra_tpu_torch.ops import ldpc as ldpc_ops
 from projectultra_tpu_torch.ops.sc_windows import sc_windows_plain
@@ -387,6 +395,13 @@ KERNELS = {  # name -> (wrapper module, TPU kernel it replaces)
     "chirp_decimate": (cuda_decimate,
                        "projectultra_tpu/sync/chirp.py:174-200 _decimate's "
                        "polyphase conv (XLA)"),
+    # One symbol of the pilot-tracking scan for DQPSK on a pilot plan: the
+    # body of the JAX package's lax.scan (XLA), ~250 eager operators in
+    # the plain version.
+    "pilot_track": (cuda_track,
+                    "projectultra_tpu/ofdm/demodulator.py "
+                    "update_channel_estimate, equalize, demodulate_symbol "
+                    "(the scan's body, XLA)"),
 }
 BF16 = torch.bfloat16
 
@@ -558,6 +573,19 @@ def decimate_bound(B: int, T: int):
     return bound(B * T * 4 + B * Tb * 8, B * Tb * 2 * CH.DECIM_TAPS * 2)
 
 
+def track_bound(B: int, Cd: int, Np: int, Ci: int):
+    """One tracking launch's bound: a lane reads its Cd + Np used bins, its
+    estimate at the pilots and the data bins, its previous pilots and
+    equalized data, and writes the estimate at the pilots and the
+    interpolated bins, its pilots, its equalized data and 2 Cd LLRs, and
+    about 12 scalars each way (complex values 8 bytes); float32 operations
+    ~40 a pilot twice, ~20 an interpolated bin and ~60 a data carrier,
+    each sine, cosine, arctangent or hypotenuse counted as one."""
+    n_bytes = B * (8 * (Cd + Np) + 8 * (Np + Cd) + 8 * (2 * Np + Cd)
+                   + 8 * (Np + Ci) + 8 * (Np + Cd) + 4 * 2 * Cd + 2 * 48)
+    return bound(n_bytes, B * (80 * Np + 20 * Ci + 60 * Cd))
+
+
 #: (kernel, shape, kernel ms, bound ms, basis) of every timed shape.
 SHAPES: list = []
 
@@ -568,7 +596,8 @@ KERNEL_EVENT = {"ldpc_minsum": "ldpc_minsum_kernel",
                 "ldpc_minsum_bf16": "ldpc_minsum_kernel",
                 "sc_windows": "sc_windows_kernel",
                 "dpsk_score": "dpsk_score_kernel",
-                "chirp_decimate": "chirp_decimate_kernel"}
+                "chirp_decimate": "chirp_decimate_kernel",
+                "pilot_track": "pilot_track_kernel"}
 
 
 def report_shape(name: str, shape: str, fn, reps: int, bound_ms: float,
@@ -1099,14 +1128,19 @@ def phase_cox_path(dev: torch.device) -> dict:
                            COX_BUFFERS)
     torch.cuda.synchronize()
 
-    cuda_sc.launches = cuda_ldpc.launches = 0
+    cuda_sc.launches = cuda_ldpc.launches = cuda_track.launches = 0
+    replays = D.scan_replays
     outs = [decode_cox(rx) for rx in rx_all]
     torch.cuda.synchronize()
     launches = {"sc_windows": cuda_sc.launches,
-                "ldpc_minsum": cuda_ldpc.launches}
-    print(f"Cox path kernel launches: {launches}", flush=True)
+                "ldpc_minsum": cuda_ldpc.launches,
+                "pilot_track": cuda_track.launches}
+    print(f"Cox path kernel launches: {launches}, scan graph replays "
+          f"{D.scan_replays - replays}", flush=True)
     require(all(n > 0 for n in launches.values()),
-            "the Cox path did not launch both kernels")
+            "the Cox path did not launch its three kernels")
+    require(D.scan_replays > replays,
+            "the Cox path did not replay the scan's graph")
     check_cox(outs, info, f"{SNR_DB} dB")
 
     # 64 lanes of the first buffer through the CPU path: equal bits on the
@@ -1211,6 +1245,101 @@ def phase_cox_timing(dev: torch.device, card: str):
                                                     det))
     ldpc_at_new_shape("R1/2 17 dB Cox buffer", RATE, llrs.contiguous(), card)
     return sc8
+
+
+#: The pilot-tracking kernel against the scan's PyTorch step
+#: (tests/test_torch_cuda.py): LLRs lie in [-10, 10].  The kernel sums over
+#: carriers in another order, so a lane whose tracking meets a near-tie
+#: (the timing fix's |offset| > 0.1) can take the other branch and end
+#: apart; at most TRACK_APART of the lanes may.
+TRACK_LLR_ATOL = 2e-3
+TRACK_APART = 2e-3
+
+
+def scan_args(rx: torch.Tensor) -> tuple:
+    """The arguments ``decode_cox_batch`` gives the scan on ``rx`` (the
+    scan's module function wrapped for the call to record them)."""
+    seen = []
+    real = D._scan_data_symbols
+
+    def record(*args, **kwargs):
+        seen.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    with mock.patch.object(D, "_scan_data_symbols", record):
+        decode_cox(rx)
+    return seen[0]
+
+
+def plain_track(state, fd: torch.Tensor):
+    """The scan's PyTorch step that the kernel replaces."""
+    state = D.update_channel_estimate(COX_CFG, state, fd)
+    eq, cnv = D.equalize(COX_CFG, MOD, state, fd)
+    llrs, state = D.demodulate_symbol(COX_CFG, MOD, state, eq, cnv)
+    return state, llrs
+
+
+def phase_pilot_track(card: str, rx: torch.Tensor) -> tuple:
+    """The pilot-tracking kernel at the Cox benchmark cell's B = 2,048 (the
+    buffers' rows repeated) and the engine's B = 1: the whole scan through
+    the kernel against the scan through the PyTorch step on the same card
+    tensors (LLRs within TRACK_LLR_ATOL and signs equal where the plain LLR
+    passes it, on all but at most TRACK_APART of the lanes; one launch a
+    symbol), and one symbol's launch timed against the step it replaces
+    and its bound.  Returns the cell's (max LLR difference on the lanes
+    within the tolerance, call ms, plain ms, bound ms, basis)."""
+    cell = rx.repeat(-(-2048 // rx.shape[0]), 1)[:2048].contiguous()
+    rows = []
+    for label, x in (("Cox cell", cell), ("engine", cell[:1].clone())):
+        args, kwargs = scan_args(x)
+        a = inspect.signature(D._scan_eager).bind(*args, **kwargs)
+        a.apply_defaults()
+        config, mod, state, data = (a.arguments[k] for k in
+                                    ("config", "mod", "state", "data"))
+        S = data.shape[1]
+        before = cuda_track.launches
+        _, llrs = D._scan_eager(*args, **kwargs)
+        launched = cuda_track.launches - before
+        with mock.patch.object(D, "_fused_tracking", lambda *_a: False):
+            _, plain = D._scan_eager(*args, **kwargs)
+        torch.cuda.synchronize()
+        lane = (llrs - plain).abs().amax(-1)
+        apart = lane > TRACK_LLR_ATOL
+        err = float(lane[~apart].max())
+        sure = (plain.abs() > TRACK_LLR_ATOL) & ~apart[:, None]
+        signs = bool(torch.equal(llrs[sure] > 0, plain[sure] > 0))
+        print(f"pilot-tracking kernel vs the PyTorch step [{label}] "
+              f"B={data.shape[0]} S={S}: max LLR difference {err!r} (limit "
+              f"{TRACK_LLR_ATOL}) on the lanes within it, signs equal "
+              f"{signs}; lanes apart {int(apart.sum())} (at most "
+              f"{TRACK_APART:.1%}, largest difference "
+              f"{float(lane.max())!r}); launches {launched}", flush=True)
+        require(launched == S and signs
+                and float(apart.float().mean()) <= TRACK_APART,
+                f"the pilot-tracking kernel differs from the PyTorch step "
+                f"({label})")
+
+        ic, taper = D._scan_windows(mod, a.arguments["front"])
+        fd, st = D.to_baseband_fd(config, state, data[:, 0],
+                                  a.arguments["t0_base"], image_cancel=ic,
+                                  taper=taper, bins_w=a.arguments["bins_w"])
+        k_ms, p_ms = time_pair(
+            lambda: cuda_track.track_dqpsk_cuda(config, st, fd),
+            lambda: plain_track(st, fd), 50, 10)
+        tables = cuda_track._tables(config, fd.device)
+        Cd, Np, Ci = (int(tables[i].numel()) for i in (0, 1, 6))
+        B = fd.shape[0]
+        print(f"pilot-tracking [{label}] B={B}: kernel {k_ms!r} ms, the "
+              f"PyTorch step (update_channel_estimate, equalize, "
+              f"demodulate_symbol) {p_ms!r} ms a symbol (calls, CUDA "
+              f"events) on {card}", flush=True)
+        bound_ms, by = track_bound(B, Cd, Np, Ci)
+        report_shape("pilot_track", f"{label}, B={B}, one symbol, Cd={Cd} "
+                     f"Np={Np} Ci={Ci}",
+                     lambda: cuda_track.track_dqpsk_cuda(config, st, fd), 50,
+                     bound_ms, by, card)
+        rows.append((err, k_ms, p_ms, bound_ms, by))
+    return rows[0]
 
 
 # ---------------------------------------------------------------------------
@@ -3752,6 +3881,8 @@ def main() -> None:
     phase_detection_parity(dev, rx)
     cox_launches = phase_cox_path(dev)
     sc_ms, sc_plain_ms, sc_bound_ms, sc_by = phase_cox_timing(dev, card)
+    track_row = phase_pilot_track(card, noisy_buffers(
+        tx, torch.Generator(device=dev).manual_seed(21), 1)[0])
 
     _, tx = chirp_tx(dev, 30)
     phase_chirp_detection(noisy_buffers(
@@ -3793,15 +3924,18 @@ def main() -> None:
     # that path with bf16 messages; the counts of the Cox and chirp paths
     # are printed above; the DPSK score kernel's in the DPSK medium path;
     # the decimation kernel's in the chirp path, ms and bound_ms at the
-    # acquired benchmark cell's shape).  ms and bound_ms at that path's
-    # shape; no single PyTorch call computes any of the five (library_ms
-    # null).
+    # acquired benchmark cell's shape; the pilot-tracking kernel's in the
+    # Cox path, its max_abs_err the largest LLR difference from the
+    # PyTorch step, ms and bound_ms one symbol at the Cox benchmark cell's
+    # shape).  ms and bound_ms at that path's shape; no single PyTorch call
+    # computes any of the six (library_ms null).
     rows = [("ldpc_minsum", ldpc_launches, ldpc_err, ldpc_ms, ldpc_plain_ms,
              ldpc_bound_ms, ldpc_by),
             ("sc_windows", cox_launches["sc_windows"], sc_err, sc_ms,
              sc_plain_ms, sc_bound_ms, sc_by),
             ("ldpc_minsum_bf16", *bf16_row), ("dpsk_score", *dpsk_row),
-            ("chirp_decimate", decimate_launches, *decimate_row)]
+            ("chirp_decimate", decimate_launches, *decimate_row),
+            ("pilot_track", cox_launches["pilot_track"], *track_row)]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source_of(name),
          "replaces": KERNELS[name][1], "launches": launches,

@@ -14,7 +14,10 @@ Three receivers over the same per-symbol blocks:
   interpolation, temporal noise estimation, equalize, demap.  QAM64 and
   QAM256 on a pilot plan re-demap the whole frame with per-carrier noise
   from three estimators (decision residual, interpolated pilot diffs,
-  instantaneous residual);
+  instantaneous residual).  On a card the loop runs as one replay of a
+  CUDA graph captured once per shape (from the shape's second call on),
+  not as ~280 launches a symbol, and DQPSK's tracking, equalization and
+  demap are one hand-written kernel a symbol (``ops/cuda_track.py``);
 * the coherent refined path of no-pilot plans (``_demod_coherent_refined``):
   every symbol's used bins, a dual decision-directed PLL (common phase and
   timing slope, a Python loop over the symbols), three alternating rank-1
@@ -43,6 +46,7 @@ from torch import nn
 from ..config import ModemConfig, Modulation, bits_per_symbol, is_differential
 from ..device import host_table
 from . import carriers as carriers_mod
+from ..ops import cuda_graphs
 from ..ops import demap as demap_ops
 from ..ops import mixer as mixer_ops
 from ..utils import metrics
@@ -873,15 +877,86 @@ def _scan_windows(mod: Modulation, front: str) -> tuple[bool, bool]:
     return (hi and QAM256_RX == "real" and not real), (hi and not real)
 
 
+#: Captures and replays of the scan's CUDA graphs (``_scan_data_symbols``
+#: on a card), counted as ``cuda_ldpc.launches`` counts its kernel.
+scan_captures = 0
+scan_replays = 0
+#: Scan graphs kept, the least recently used dropped first: a caller at
+#: B = 1 (the engine) brings several shapes.
+SCAN_GRAPHS = 8
+#: Shapes seen once, the oldest dropped first.
+SCAN_SEEN = 64
+_scan_graphs = cuda_graphs.Cache(SCAN_GRAPHS, SCAN_SEEN)
+
+
 def _scan_data_symbols(config: ModemConfig, mod: Modulation,
                        state: DemodState, data: torch.Tensor, t0_base: int,
                        front: str = "analytic", n_bits: int | None = None,
                        bins_w=None):
     """The symbol-by-symbol receiver over [B, S, L] data symbols starting
-    at mixer time ``t0_base`` (the JAX ``lax.scan`` as a Python loop):
-    returns (final state, llrs [B, S*C*bits]).  Every step is a fixed
-    sequence of tensor operations; nothing is read to the host.  ``bins_w``
-    are the rectangular window's rows when the caller holds them.
+    at mixer time ``t0_base`` (the JAX ``lax.scan``): returns (final
+    state, llrs [B, S*C*bits]).  On the CPU it is the Python loop
+    ``_scan_eager``.  On a card, from the second call of a shape on, it is
+    one replay of that loop captured as a CUDA graph
+    (``ops/cuda_graphs.py``), which runs the same kernels in the same
+    order, so its outputs are the loop's bit for bit; the state, the data
+    and the caller's window rows are copied into the graph's inputs, and
+    its outputs cloned out, so one call's results outlive the next.  A
+    shape's first call runs the loop, so a shape met once (a station's
+    frame of a new length) costs no capture.  Nothing is read to the host.
+    ``bins_w`` are the rectangular window's rows when the caller holds
+    them."""
+    with metrics.span("ofdm.scan", data):
+        if data.device.type != "cuda":
+            return _scan_eager(config, mod, state, data, t0_base, front,
+                               n_bits, bins_w)
+        global scan_replays
+        ic, taper = _scan_windows(mod, front)
+        B, S, L = data.shape
+        key = (config, mod, front, ic, taper, n_bits, B, S, L, int(t0_base),
+               bins_w is not None, data.dtype, data.device)
+        n = len(state)
+
+        def run(*x):
+            return _scan_eager(config, mod, DemodState(*x[:n]), x[n],
+                               t0_base, front, n_bits, x[n + 1:] or None)
+
+        inputs = (*state, data, *(bins_w or ()))
+
+        def capture():
+            global scan_captures
+            scan_captures += 1
+            return cuda_graphs.Captured(run, inputs)
+
+        graph = _scan_graphs.get(key, capture)
+        if graph is None:
+            return _scan_eager(config, mod, state, data, t0_base, front,
+                               n_bits, bins_w)
+        scan_replays += 1
+        out_state, llrs = graph(inputs)
+        if _fused_tracking(config, mod, data):
+            # The replay ran the tracking kernel once a symbol.
+            from ..ops import cuda_track
+            cuda_track.launches += S
+        return DemodState(*(x.clone() for x in out_state)), llrs.clone()
+
+
+def _fused_tracking(config: ModemConfig, mod: Modulation,
+                    data: torch.Tensor) -> bool:
+    """Whether the scan's step after ``to_baseband_fd`` runs as the
+    hand-written kernel (``ops/cuda_track.py``): DQPSK on a pilot plan, on
+    a card.  Its PyTorch operations are the kernel's oracle."""
+    return (data.device.type == "cuda" and mod == Modulation.DQPSK
+            and len(carriers_mod.carrier_map(config).pilot_idx) > 0)
+
+
+def _scan_eager(config: ModemConfig, mod: Modulation, state: DemodState,
+                data: torch.Tensor, t0_base: int, front: str = "analytic",
+                n_bits: int | None = None, bins_w=None):
+    """The scan as a Python loop over the symbols, each a fixed sequence of
+    tensor operations (``_scan_data_symbols`` on the CPU, and what its CUDA
+    graph captures).  DQPSK on a pilot plan on a card tracks, equalizes and
+    demaps each symbol in one launch of the pilot-tracking kernel.
 
     QAM64/QAM256 on a pilot plan demap the whole frame again afterwards
     with per-carrier noise, the max of the scan's own, the frame's decision
@@ -900,11 +975,17 @@ def _scan_data_symbols(config: ModemConfig, mod: Modulation,
     t = t0_base + torch.arange(S * L, dtype=torch.int32, device=dev)
     osc = mixer_ops.osc_int(config.center_freq, config.sample_rate,
                             t).reshape(S, L)
+    fused = _fused_tracking(config, mod, data)
     llrs, eqs, cnvs, h_lss, hp_ds = [], [], [], [], []
     for s in range(S):
         fd, state = to_baseband_fd(config, state, data[:, s], t0_base + s * L,
                                    image_cancel=ic, taper=taper,
                                    bins_w=bins_w, osc=osc[s])
+        if fused:
+            from ..ops import cuda_track
+            state, sym_llrs = cuda_track.track_dqpsk_cuda(config, state, fd)
+            llrs.append(sym_llrs)
+            continue
         if has_pilots:
             state = update_channel_estimate(config, state, fd)
         eq, cnv = equalize(config, mod, state, fd)

@@ -214,8 +214,12 @@ def bits_per_ofdm_symbol(config: ModemConfig, mod: Modulation) -> int:
     return len(cm.data_idx) * bits_per_symbol(mod)
 
 
+@functools.lru_cache(maxsize=16)
 def _modulator_for(config: ModemConfig, mod: Modulation, S: int,
                    t_offset: int, device: torch.device) -> Modulator:
+    """The modulator of one shape on ``device``, kept for the next call (the
+    16 most recently used): copying its tables to the card on every call
+    would synchronise the stream."""
     return Modulator(config, mod, S, t_offset).to(device)
 
 

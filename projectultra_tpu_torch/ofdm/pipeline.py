@@ -23,6 +23,7 @@ from ..config import CodeRate, ModemConfig, Modulation, bits_per_symbol
 from ..fec import ldpc
 from . import carriers as carriers_mod
 from ..fec.interleave import channel_interleaver
+from ..ops import cuda_graphs
 from ..ops import ldpc as ldpc_ops
 from ..utils import metrics
 from . import demodulator as demod_mod
@@ -176,6 +177,28 @@ def _preamble_on(config: ModemConfig, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(mod_mod.generate_preamble(config)).to(device)
 
 
+#: Captures and replays of the Cox TX's CUDA graphs (``tx_cox_frame`` on
+#: a card), counted as the scan's are.
+tx_captures = 0
+tx_replays = 0
+#: TX graphs kept, the least recently used dropped first, and shapes seen
+#: once, the oldest dropped first.
+TX_GRAPHS, TX_SEEN = 8, 64
+_tx_graphs = cuda_graphs.Cache(TX_GRAPHS, TX_SEEN)
+
+
+def _cox_data(config: ModemConfig, mod: Modulation, rate: CodeRate,
+              n_codewords: int, info_bits: torch.Tensor) -> torch.Tensor:
+    """[B, ncw*k] info bits -> [B, S*symbol] data symbols of a Cox frame:
+    encoded, interleaved, modulated from ``preamble_data_t_offset``."""
+    B, dev = info_bits.shape[0], info_bits.device
+    pipe = pipeline_for(config, mod, rate, n_codewords, dev)
+    cw = ldpc_ops.encode_with(pipe.code, info_bits.reshape(
+        B * n_codewords, pipe.code.k))[:, pipe.interleave_inv]
+    return mod_mod.modulate(config, mod, cw.reshape(B, -1),
+                            t_offset=mod_mod.preamble_data_t_offset(config))
+
+
 def tx_cox_frame(config: ModemConfig, mod: Modulation, rate: CodeRate,
                  info_bits: torch.Tensor, lead: int = 0, tail: int = 0,
                  n_codewords: int = 1) -> torch.Tensor:
@@ -183,17 +206,37 @@ def tx_cox_frame(config: ModemConfig, mod: Modulation, rate: CodeRate,
     float32 Schmidl-Cox frames as the JAX bench and tests build them
     (bench.py:304-321, tests/test_delay_fit.py:32-46): ``lead`` zeros, the
     preamble, the frame's interleaved codewords modulated from
-    ``preamble_data_t_offset``, ``tail`` zeros."""
-    B, dev = info_bits.shape[0], info_bits.device
-    pipe = pipeline_for(config, mod, rate, n_codewords, dev)
-    cw = ldpc_ops.encode_with(pipe.code, info_bits.reshape(
-        B * n_codewords, pipe.code.k))[:, pipe.interleave_inv]
-    data = mod_mod.modulate(config, mod, cw.reshape(B, -1),
-                            t_offset=mod_mod.preamble_data_t_offset(config))
-    pre = _preamble_on(config, dev)
-    return torch.cat([torch.zeros((B, lead), device=dev),
-                      pre.expand(B, pre.shape[0]), data,
-                      torch.zeros((B, tail), device=dev)], dim=-1)
+    ``preamble_data_t_offset``, ``tail`` zeros.  On a card, from a shape's
+    second call on, the encode, interleave and modulation (``_cox_data``,
+    ~25 launches) run as one replay of a CUDA graph
+    (``ops/cuda_graphs.py``): the same kernels in the same order, so the
+    same samples, without a host launch each; the frame's concatenation
+    copies them out of the graph."""
+    global tx_replays
+    with metrics.span("cox.tx", info_bits):
+        B, dev = info_bits.shape[0], info_bits.device
+        data = None
+        if dev.type == "cuda":
+            key = (config, mod, rate, n_codewords, tuple(info_bits.shape),
+                   info_bits.dtype, dev)
+
+            def capture():
+                global tx_captures
+                tx_captures += 1
+                return cuda_graphs.Captured(
+                    functools.partial(_cox_data, config, mod, rate,
+                                      n_codewords), (info_bits,))
+
+            graph = _tx_graphs.get(key, capture)
+            if graph is not None:
+                tx_replays += 1
+                data = graph((info_bits,))
+        if data is None:
+            data = _cox_data(config, mod, rate, n_codewords, info_bits)
+        pre = _preamble_on(config, dev)
+        return torch.cat([torch.zeros((B, lead), device=dev),
+                          pre.expand(B, pre.shape[0]), data,
+                          torch.zeros((B, tail), device=dev)], dim=-1)
 
 
 def rx_frame(config: ModemConfig, mod: Modulation, rate: CodeRate,

@@ -38,6 +38,7 @@ from ..ops import ldpc as ldpc_ops
 from ..ops import mixer as mixer_ops
 from ..ops.sc_windows import sc_windows
 from ..ops.sc_windows import window_sum as _window_sum
+from ..utils import metrics
 
 # The plateau gate is 0.85, not the reference's 0.90
 # (demodulator_constants.hpp:51), as in the JAX package: 0.90 caps coherent
@@ -153,123 +154,130 @@ def detect_preamble(config: ModemConfig, samples: torch.Tensor,
     Returns a dict of [B] tensors: found (bool), data_start (first data
     sample), cfo_hz, peak_corr, lts_corr, lts_start, sync_off (int32 but
     for the float32 cfo and correlations).  Nothing is read to the host."""
-    B, T = samples.shape
-    N, cp = config.fft_size, config.cyclic_prefix
-    plen = N + cp
-    dev = samples.device
+    with metrics.span("cox.detect", samples):
+        B, T = samples.shape
+        N, cp = config.fft_size, config.cyclic_prefix
+        plen = N + cp
+        dev = samples.device
 
-    # ONE signal FFT shared by the analytic transform and the LTS filter.
-    n_fft = _n_fft(T)
-    X = torch.fft.fft(samples.to(torch.complex64), n=n_fft, dim=-1)
-    n_off = T - N - cp + 1
+        # ONE signal FFT shared by the analytic transform and the LTS filter.
+        n_fft = _n_fft(T)
+        X = torch.fft.fft(samples.to(torch.complex64), n=n_fft, dim=-1)
+        n_off = T - N - cp + 1
 
-    # Schmidl-Cox metric and energy gate on the stride-8 candidate grid
-    # (the reference's coarse loop also steps 8).  Grid point g is the
-    # candidate d = 8*g whose correlation window starts at d + cp.
-    st = SEARCH_STEP
-    half = N // 2
-    if cp % st or half % st:
-        raise ValueError(f"cp={cp} and N/2={half} must be multiples of {st}")
-    a = analytic_signal(samples, X)
-    nb, cpb = T // st, cp // st
-    G = search_grid_size(config, T)
-    gP, gR1, gR2 = sc_windows(a, half, st, cp, G)
-    gcorr = _gated_corr(gP, gR1, gR2)
+        # Schmidl-Cox metric and energy gate on the stride-8 candidate grid
+        # (the reference's coarse loop also steps 8).  Grid point g is the
+        # candidate d = 8*g whose correlation window starts at d + cp.
+        st = SEARCH_STEP
+        half = N // 2
+        if cp % st or half % st:
+            raise ValueError(f"cp={cp} and N/2={half} must be multiples "
+                             f"of {st}")
+        a = analytic_signal(samples, X)
+        nb, cpb = T // st, cp // st
+        G = search_grid_size(config, T)
+        gP, gR1, gR2 = sc_windows(a, half, st, cp, G)
+        gcorr = _gated_corr(gP, gR1, gR2)
 
-    # Energy gate (hasMinimumEnergy, ofdm_sync.cpp:20-50) on the exact FFT
-    # window [d+cp, d+cp+N): the noise floor is min(0.1 x first-window
-    # energy, least window energy), and windows 40 dB below the buffer's
-    # peak are rejected (true silence carries only Hilbert ringing).
-    sb = (samples * samples)[:, :nb * st].reshape(B, nb, st).sum(-1)
-    Ew = _window_sum(sb, N // st)
-    e_all = Ew[:, cpb:cpb + G] / N
-    floor = torch.clamp(torch.minimum(0.1 * e_all[:, :1],
-                                      e_all.amin(-1, keepdim=True)),
-                        min=1e-10)
-    energy_ok = (e_all >= 4.0 * floor) \
-        & (e_all >= 1e-4 * e_all.amax(-1, keepdim=True))
-    gcorr = torch.where(energy_ok, gcorr, 0.0)                # [B, G]
+        # Energy gate (hasMinimumEnergy, ofdm_sync.cpp:20-50) on the exact FFT
+        # window [d+cp, d+cp+N): the noise floor is min(0.1 x first-window
+        # energy, least window energy), and windows 40 dB below the buffer's
+        # peak are rejected (true silence carries only Hilbert ringing).
+        sb = (samples * samples)[:, :nb * st].reshape(B, nb, st).sum(-1)
+        Ew = _window_sum(sb, N // st)
+        e_all = Ew[:, cpb:cpb + G] / N
+        floor = torch.clamp(torch.minimum(0.1 * e_all[:, :1],
+                                          e_all.amin(-1, keepdim=True)),
+                            min=1e-10)
+        energy_ok = (e_all >= 4.0 * floor) \
+            & (e_all >= 1e-4 * e_all.amax(-1, keepdim=True))
+        gcorr = torch.where(energy_ok, gcorr, 0.0)                # [B, G]
 
-    grid = torch.arange(G, device=dev) * st                   # sample units
-    win_pts = PLATEAU_SEARCH_WINDOW // SEARCH_STEP + 1
-    # Leave room for the full preamble and LTS search beyond a candidate.
-    max_start = n_off - 6 * plen - 2 * plen
-    rel = torch.arange(win_pts, device=dev)
+        grid = torch.arange(G, device=dev) * st               # sample units
+        win_pts = PLATEAU_SEARCH_WINDOW // SEARCH_STEP + 1
+        # Leave room for the full preamble and LTS search beyond a candidate.
+        max_start = n_off - 6 * plen - 2 * plen
+        rel = torch.arange(win_pts, device=dev)
 
-    # LTS fine-timing matched filter, shared by both gate sets
-    # (ofdm_sync.cpp:386-466).
-    tmpl = lts_passband_template(config)
-    L = len(tmpl)
-    e_ref = float((np.abs(tmpl) ** 2).sum()) * 0.5
-    mf = torch.fft.ifft(X * _lts_filter(config, n_fft, dev),
-                        dim=-1)[:, :T - L + 1].abs()
-    energy = _window_sum(samples * samples, L)
-    nmf = torch.where(energy * e_ref > 1e-12,
-                      mf / torch.sqrt(torch.clamp(energy * e_ref, min=1e-30)),
-                      0.0)
-    n_mf = nmf.shape[-1]
-    pos = torch.arange(n_mf, device=dev)[None, :]
+        # LTS fine-timing matched filter, shared by both gate sets
+        # (ofdm_sync.cpp:386-466).
+        tmpl = lts_passband_template(config)
+        L = len(tmpl)
+        e_ref = float((np.abs(tmpl) ** 2).sum()) * 0.5
+        mf = torch.fft.ifft(X * _lts_filter(config, n_fft, dev),
+                            dim=-1)[:, :T - L + 1].abs()
+        energy = _window_sum(samples * samples, L)
+        nmf = torch.where(energy * e_ref > 1e-12,
+                          mf / torch.sqrt(torch.clamp(energy * e_ref,
+                                                      min=1e-30)),
+                          0.0)
+        n_mf = nmf.shape[-1]
+        pos = torch.arange(n_mf, device=dev)[None, :]
 
-    def pick(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-        return x.gather(1, idx[:, None])[:, 0]
+        def pick(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+            return x.gather(1, idx[:, None])[:, 0]
 
-    def run_gates(sync_t, plat_t, min_plat, lts_t) -> dict:
-        # Plateau count in [g, g+300] on the grid: 38 points.
-        above = (gcorr >= plat_t).to(torch.float32)
-        counts = _window_sum(above, win_pts)                  # [B, G-win+1]
-        Gc = counts.shape[-1]
-        cand = (gcorr[:, :Gc] > sync_t) & (counts >= min_plat) \
-            & (grid[None, :Gc] < max(max_start, 1))
-        found_sc = cand.any(-1)
-        first = torch.argmax(cand.to(torch.int32), dim=-1)   # first candidate
+        def run_gates(sync_t, plat_t, min_plat, lts_t) -> dict:
+            # Plateau count in [g, g+300] on the grid: 38 points.
+            above = (gcorr >= plat_t).to(torch.float32)
+            counts = _window_sum(above, win_pts)              # [B, G-win+1]
+            Gc = counts.shape[-1]
+            cand = (gcorr[:, :Gc] > sync_t) & (counts >= min_plat) \
+                & (grid[None, :Gc] < max(max_start, 1))
+            found_sc = cand.any(-1)
+            # The first candidate.
+            first = torch.argmax(cand.to(torch.int32), dim=-1)
 
-        # Peak within the plateau window after the first candidate.
-        win_idx = torch.clamp(first[:, None] + rel[None, :], 0, G - 1)
-        wcorr = gcorr.gather(1, win_idx)
-        peak_rel = torch.argmax(wcorr, dim=-1)
-        gidx = torch.clamp(first + peak_rel, 0, G - 1)
-        sync_off = grid[gidx]
-        peak_corr = pick(wcorr, peak_rel)
+            # Peak within the plateau window after the first candidate.
+            win_idx = torch.clamp(first[:, None] + rel[None, :], 0, G - 1)
+            wcorr = gcorr.gather(1, win_idx)
+            peak_rel = torch.argmax(wcorr, dim=-1)
+            gidx = torch.clamp(first + peak_rel, 0, G - 1)
+            sync_off = grid[gidx]
+            peak_corr = pick(wcorr, peak_rel)
 
-        # Coarse CFO from P at the sync offset (ofdm_sync.cpp:230-258).
-        phase = torch.angle(pick(gP, gidx))
-        cfo = phase * config.sample_rate / (math.pi * N)
-        max_cfo = config.sample_rate / N
-        cfo = torch.clamp(cfo, -max_cfo, max_cfo)
+            # Coarse CFO from P at the sync offset (ofdm_sync.cpp:230-258).
+            phase = torch.angle(pick(gP, gidx))
+            cfo = phase * config.sample_rate / (math.pi * N)
+            max_cfo = config.sample_rate / N
+            cfo = torch.clamp(cfo, -max_cfo, max_cfo)
 
-        # LTS fine timing around sync_off + 4*plen, search [-3*plen, +plen/2].
-        coarse_lts = sync_off + 4 * plen
-        win = (pos >= (coarse_lts - 3 * plen)[:, None]) \
-            & (pos <= (coarse_lts + plen // 2)[:, None])
-        lts_start = torch.argmax(torch.where(win, nmf, -1.0), dim=-1)
-        lts_corr = pick(nmf, lts_start)
-        # The two LTS symbols are identical, so the matched filter has a
-        # one-symbol ambiguity: if a comparable peak lies one symbol
-        # EARLIER (still in the window), prefer it.
-        prev_pos = torch.clamp(lts_start - plen, 0, n_mf - 1)
-        prev_corr = pick(nmf, prev_pos)
-        prev_in_win = (lts_start - plen) >= (coarse_lts - 3 * plen)
-        take_prev = prev_in_win & (prev_corr >= 0.85 * lts_corr)
-        lts_start = torch.where(take_prev, prev_pos, lts_start)
-        lts_corr = torch.where(take_prev, prev_corr, lts_corr)
+            # LTS fine timing around sync_off + 4*plen, search
+            # [-3*plen, +plen/2].
+            coarse_lts = sync_off + 4 * plen
+            win = (pos >= (coarse_lts - 3 * plen)[:, None]) \
+                & (pos <= (coarse_lts + plen // 2)[:, None])
+            lts_start = torch.argmax(torch.where(win, nmf, -1.0), dim=-1)
+            lts_corr = pick(nmf, lts_start)
+            # The two LTS symbols are identical, so the matched filter has a
+            # one-symbol ambiguity: if a comparable peak lies one symbol
+            # EARLIER (still in the window), prefer it.
+            prev_pos = torch.clamp(lts_start - plen, 0, n_mf - 1)
+            prev_corr = pick(nmf, prev_pos)
+            prev_in_win = (lts_start - plen) >= (coarse_lts - 3 * plen)
+            take_prev = prev_in_win & (prev_corr >= 0.85 * lts_corr)
+            lts_start = torch.where(take_prev, prev_pos, lts_start)
+            lts_corr = torch.where(take_prev, prev_corr, lts_corr)
 
-        found = found_sc & (lts_corr >= lts_t)
-        i32 = torch.int32
-        return {"found": found,
-                "data_start": (lts_start + 2 * plen).to(i32),  # after 2 LTS
-                "cfo_hz": cfo, "peak_corr": peak_corr, "lts_corr": lts_corr,
-                "lts_start": lts_start.to(i32), "sync_off": sync_off.to(i32)}
+            found = found_sc & (lts_corr >= lts_t)
+            i32 = torch.int32
+            return {"found": found,
+                    # The first data sample, after the two LTS.
+                    "data_start": (lts_start + 2 * plen).to(i32),
+                    "cfo_hz": cfo, "peak_corr": peak_corr,
+                    "lts_corr": lts_corr, "lts_start": lts_start.to(i32),
+                    "sync_off": sync_off.to(i32)}
 
-    if lts_threshold is None:
-        lts_threshold = 0.05 if config.fft_size >= 1024 else 0.35
-    out = run_gates(sync_threshold, plateau_threshold, min_plateau,
-                    lts_threshold)
-    if with_deep:
-        deep = run_gates(DEEP_SYNC_THRESHOLD, DEEP_PLATEAU_THRESHOLD,
-                         DEEP_MIN_PLATEAU, min(DEEP_LTS_THRESHOLD,
-                                               lts_threshold))
-        out.update({"deep_" + k: v for k, v in deep.items()})
-    return out
+        if lts_threshold is None:
+            lts_threshold = 0.05 if config.fft_size >= 1024 else 0.35
+        out = run_gates(sync_threshold, plateau_threshold, min_plateau,
+                        lts_threshold)
+        if with_deep:
+            deep = run_gates(DEEP_SYNC_THRESHOLD, DEEP_PLATEAU_THRESHOLD,
+                             DEEP_MIN_PLATEAU, min(DEEP_LTS_THRESHOLD,
+                                                   lts_threshold))
+            out.update({"deep_" + k: v for k, v in deep.items()})
+        return out
 
 
 def hunt_for_codeword(config: ModemConfig, mod, samples: torch.Tensor,
@@ -359,17 +367,21 @@ def demodulate_detected(config: ModemConfig, mod, samples: torch.Tensor,
 
 
 def decode_cox_batch(config: ModemConfig, mod, rate: CodeRate,
-                     samples: torch.Tensor, n_codewords: int = 1):
+                     samples: torch.Tensor, n_codewords: int = 1,
+                     with_llrs: bool = False):
     """The acquisition-inclusive receiver step of the bench
     (bench.py:330-342) on [B, T] buffers that each hold one frame at an
     unknown position: ``detect_preamble`` -> ``demodulate_detected`` ->
     deinterleave -> LDPC decode.  Nothing is read to the host.
 
     Returns (info [B, ncw*k] uint8, ok [B] bool (decoded AND detected),
-    iters [B, ncw] int32, det dict)."""
-    det = detect_preamble(config, samples)
-    llrs = demodulate_detected(config, mod, samples, det, n_codewords)
-    pipe = ofdm_pipeline.pipeline_for(config, mod, rate, n_codewords,
-                                      samples.device)
-    info, ok, iters = pipe.decode(llrs)
-    return info, ok & det["found"], iters, det
+    iters [B, ncw] int32, det dict), and with ``with_llrs`` the
+    demodulated LLRs [B, S*C*bits] before the deinterleave last."""
+    with metrics.span("cox.rx", samples):
+        det = detect_preamble(config, samples)
+        llrs = demodulate_detected(config, mod, samples, det, n_codewords)
+        pipe = ofdm_pipeline.pipeline_for(config, mod, rate, n_codewords,
+                                          samples.device)
+        info, ok, iters = pipe.decode(llrs)
+        out = (info, ok & det["found"], iters, det)
+        return (*out, llrs) if with_llrs else out

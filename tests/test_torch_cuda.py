@@ -85,6 +85,25 @@ way through both kernels.
 The program's spans (``utils/metrics.span``): one step of each benchmark
 entry kind with the spans on records every span's CUDA events without a
 synchronisation, each child's device ms within its parent's.
+
+The pilot-tracking scan's CUDA graph (``ops/cuda_graphs.py``)
+against its eager loop on the same card tensors, with ``torch.equal`` on
+the LLRs and every state field, at B = 1, 7 and 2,048 on DQPSK over the
+default pilot plan, QAM64's whole-frame re-demap and the adaptive
+equalizer (a shape's first call runs the loop, its second captures);
+two replays in a row on different inputs; the cache's bound; no capture
+inside a benchmark window of the Cox cell.
+
+The Cox TX's CUDA graph (``ofdm/pipeline.tx_cox_frame``) against its
+eager run, bit for bit, at B = 1, 7 and 2,048, and two replays in a row;
+the tracking kernel's launches counted at each replay of the scan.
+
+The pilot-tracking kernel (``csrc/pilot_track.cu``) against the scan's
+PyTorch step on the same card tensors (DQPSK on the default pilot plan,
+B = 1, 7, 2,048): LLRs within 2e-3 and of the same sign, the tracked
+state within rtol 1e-3, atol 1e-4 (the kernel sums over carriers in
+another order); one launch a symbol; the Cox step's bits, ok flags and
+iterations equal through either.
 """
 
 import os
@@ -1465,3 +1484,297 @@ def test_traced_step_on_the_card(dev, path):
         if s.parent is not None:
             assert s.device_ms() <= by_id[s.parent].device_ms(), s.name
 
+
+
+# ---------------------------------------------------------------------------
+# The pilot-tracking scan as one CUDA graph replay
+# ---------------------------------------------------------------------------
+
+#: (config, data modulation, rate) of each branch of the scan: DQPSK on
+#: the default pilot plan, QAM64's whole-frame re-demap (``hi_pilots``),
+#: and the decision-directed adaptive equalizer.
+SCAN_CASES = {
+    "dqpsk": (COX_CFG, Modulation.DQPSK, CodeRate.R1_2),
+    "qam64_hi_pilots": (COX_CFG, Modulation.QAM64, CodeRate.R2_3),
+    "adaptive_eq": (ModemConfig(adaptive_eq_enabled=True), Modulation.QPSK,
+                    CodeRate.R1_2),
+}
+
+
+def _scan_inputs(dev, case, B, seed):
+    """The scan's arguments on Cox frames of ``case`` at 20 dB, cut at
+    their first LTS as ``demodulate_span`` cuts them: (config, mod, state
+    after the LTS estimate, data [B, S, L], t0, front, n_bits)."""
+    from projectultra_tpu_torch.ofdm import demodulator as TDM
+    cfg, mod, rate = SCAN_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    info = torch.randint(0, 2, (B, ldpc.get_code(rate).k), generator=g,
+                         device=dev, dtype=torch.uint8)
+    plen = cfg.fft_size + cfg.cyclic_prefix
+    lead = 2 * plen
+    tx = TP.tx_cox_frame(cfg, mod, rate, info, lead=lead, tail=2 * plen)
+    rx = TW.add_noise_active(tx, 20.0, g)
+    S = TP.num_data_symbols(cfg, mod)
+    first = lead + 5 * plen
+    span = rx[:, first - lead:first + 2 * plen + S * cfg.symbol_duration
+              + lead]
+    lts, data = TDM._span_segments(cfg, mod, span, 2, S, lead, lead,
+                                   "analytic")
+    ic, taper = TDM._scan_windows(mod, "analytic")
+    state = TDM.init_state(cfg, B, 0.3, 0.0, dev)
+    state = TDM.estimate_channel_from_lts(cfg, state, lts, t0_base=plen,
+                                          t0_stride=0, image_cancel=ic,
+                                          taper=taper)
+    return cfg, mod, state, data, 2 * plen, "analytic", ldpc.BLOCK_LENGTH
+
+
+def _assert_scan_equal(got, want):
+    (g_state, g_llrs), (w_state, w_llrs) = got, want
+    assert torch.equal(g_llrs, w_llrs)
+    for field, a, b in zip(w_state._fields, g_state, w_state):
+        assert a.dtype == b.dtype and torch.equal(a, b), field
+
+
+def _fresh_scan_caches():
+    from projectultra_tpu_torch.ofdm import demodulator as TDM
+    TDM._scan_graphs.clear()
+    return TDM
+
+
+@pytest.mark.parametrize("B", [1, 7, 2048])
+@pytest.mark.parametrize("case", sorted(SCAN_CASES))
+def test_scan_graph_replay_is_the_eager_loop(dev, case, B):
+    """A shape's first call runs the eager loop; its second captures the
+    graph and replays it, its third replays it: each equal to the eager
+    loop on the same card tensors, the LLRs and every field of the final
+    state bit for bit."""
+    TDM = _fresh_scan_caches()
+    args = _scan_inputs(dev, case, B, seed=B + 3)
+    want = TDM._scan_eager(*args)
+    captures, replays = TDM.scan_captures, TDM.scan_replays
+    _assert_scan_equal(TDM._scan_data_symbols(*args), want)
+    assert (TDM.scan_captures, TDM.scan_replays) == (captures, replays)
+    for n in (1, 2):
+        _assert_scan_equal(TDM._scan_data_symbols(*args), want)
+        assert TDM.scan_replays == replays + n
+    assert TDM.scan_captures == captures + 1
+
+
+def test_scan_replays_in_a_row_keep_their_own_results(dev):
+    """Two replays of one graph on different inputs: each equals its own
+    eager result, and the second leaves the first's outputs as they
+    were."""
+    TDM = _fresh_scan_caches()
+    a = _scan_inputs(dev, "dqpsk", 64, seed=1)
+    b = _scan_inputs(dev, "dqpsk", 64, seed=2)
+    want_a, want_b = TDM._scan_eager(*a), TDM._scan_eager(*b)
+    TDM._scan_data_symbols(*a)
+    replays = TDM.scan_replays
+    got_a = TDM._scan_data_symbols(*a)
+    got_b = TDM._scan_data_symbols(*b)
+    assert TDM.scan_replays == replays + 2
+    _assert_scan_equal(got_a, want_a)
+    _assert_scan_equal(got_b, want_b)
+    assert not torch.equal(got_a[1], got_b[1])
+
+
+def test_scan_graph_cache_is_bounded(dev):
+    """More shapes than the cache holds, each called twice: it keeps the
+    SCAN_GRAPHS most recently used graphs; a shape it dropped is captured
+    again at its next call."""
+    TDM = _fresh_scan_caches()
+    n = TDM.SCAN_GRAPHS + 3
+    inputs = [_scan_inputs(dev, "dqpsk", B, seed=B) for B in range(1, n + 1)]
+    captures = TDM.scan_captures
+    for args in inputs:
+        TDM._scan_data_symbols(*args)
+        TDM._scan_data_symbols(*args)
+    assert TDM.scan_captures == captures + n
+    assert len(TDM._scan_graphs) == TDM.SCAN_GRAPHS
+    assert sorted(key[6] for key in TDM._scan_graphs) == list(
+        range(4, n + 1))
+    TDM._scan_data_symbols(*inputs[-1])
+    assert TDM.scan_captures == captures + n
+    _assert_scan_equal(TDM._scan_data_symbols(*inputs[0]),
+                       TDM._scan_eager(*inputs[0]))
+    assert TDM.scan_captures == captures + n + 1
+    assert len(TDM._scan_graphs) == TDM.SCAN_GRAPHS
+
+
+def test_no_scan_capture_in_a_benchmark_window(dev):
+    """The Cox cell at a small batch as the benchmark runs it: the warm-up
+    captures the scan and the TX, the window only replays them (each
+    replay of the scan runs the tracking kernel once a symbol, and counts
+    it), and the run is correct."""
+    import ast
+    import dataclasses
+    import time
+    from benchmark import harness
+    cell = harness.load_cell("ofdm_cox-acquire-17db-b2048")
+    cell.traffic = dataclasses.replace(cell.traffic, batch=128,
+                                       reference_rows=64, compare_span=5)
+    logs = []
+    line = harness.run(cell, 2**31 + 23, 1.0, False, dev, time.perf_counter(),
+                       logs.append)
+    window = next(m for m in logs if m.startswith("window:"))
+    launches = ast.literal_eval(window.split("kernel launches ", 1)[1])
+    steps = int(window.split()[1])
+    S = TP.num_data_symbols(COX_CFG, Modulation.DQPSK)
+    assert launches["scan_captures"] == launches["tx_captures"] == 0
+    assert launches["scan_replays"] == launches["tx_replays"] == steps
+    assert launches["sc_windows"] == steps
+    assert launches["pilot_track"] == steps * S
+    assert line["correct"] is True
+
+
+def test_cox_entry_spans_on_the_card(dev):
+    """One step of the Cox entry at a small batch with the program's spans
+    on, after the scan's first call and its capture: every span records
+    its CUDA events, no child's device ms exceed its parent's, and the
+    step (TX, channel, receive chain) never synchronises."""
+    import dataclasses
+    from benchmark import harness, traffic as BT
+    from projectultra_tpu_torch.utils import metrics
+    cell = harness.load_cell("ofdm_cox-acquire-17db-b2048")
+    mix = dataclasses.replace(cell.traffic, batch=64)
+    entry = cell.entry.Entry(cell.config, mix, dev)
+    info, noise = BT.inputs(mix, entry.k, entry.T, 2**31 + 19, 0, dev)
+    with entry.precision():
+        for _ in range(2):
+            out = entry.step(info, noise, harness.no_mark)
+        torch.cuda.synchronize()
+        with metrics.tracing() as rec:
+            rec.next_batch()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                again = entry.step(info, noise, harness.no_mark)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            spans = rec.drain()
+    torch.cuda.synchronize()
+    assert torch.equal(again["bits"], out["bits"])
+    assert torch.equal(again["tx"], out["tx"])
+    assert [s.name for s in spans] == ["cox.tx", "noise.awgn", "cox.rx",
+                                       "cox.detect", "ofdm.scan",
+                                       "ldpc.decode"]
+    by_id = {s.id: s for s in spans}
+    for s in spans:
+        assert s.device_ms() > 0, s.name
+        if s.parent is not None:
+            assert s.device_ms() <= by_id[s.parent].device_ms(), s.name
+
+
+def test_scan_replays_count_the_tracking_kernel(dev):
+    """``cuda_track.launches`` counts the kernel's runs: S at the eager
+    call, none at the capture (its warm-up runs S), S at each replay."""
+    from projectultra_tpu_torch.ops import cuda_track
+    TDM = _fresh_scan_caches()
+    args = _scan_inputs(dev, "dqpsk", 16, seed=4)
+    S = args[3].shape[1]
+    counts = []
+    for _ in range(4):
+        before = cuda_track.launches
+        TDM._scan_data_symbols(*args)
+        counts.append(cuda_track.launches - before)
+    assert counts == [S, 2 * S, S, S]
+
+
+@pytest.mark.parametrize("B", [1, 7, 2048])
+def test_cox_tx_graph_replay_is_the_eager_tx(dev, B):
+    """``tx_cox_frame``: a shape's first call runs eagerly, its second
+    captures the encode, interleave and modulation and replays them, its
+    third replays them: every frame equal to the eager one bit for bit."""
+    TP._tx_graphs.clear()
+    g = torch.Generator(device=dev).manual_seed(B + 29)
+    info = torch.randint(0, 2, (B, ldpc.get_code(CodeRate.R1_2).k),
+                         generator=g, device=dev).to(torch.float32)
+
+    def tx():
+        return TP.tx_cox_frame(COX_CFG, Modulation.DQPSK, CodeRate.R1_2,
+                               info, lead=1504, tail=1024)
+
+    captures, replays = TP.tx_captures, TP.tx_replays
+    want = tx()
+    assert (TP.tx_captures, TP.tx_replays) == (captures, replays)
+    for n in (1, 2):
+        assert torch.equal(tx(), want)
+        assert TP.tx_replays == replays + n
+    assert TP.tx_captures == captures + 1
+    assert want.shape == (B, 18856)
+
+
+def test_cox_tx_replays_in_a_row_keep_their_own_frames(dev):
+    """Two replays of the TX graph on different bits: each frame equals
+    its own eager one, and the second leaves the first as it was."""
+    TP._tx_graphs.clear()
+    g = torch.Generator(device=dev).manual_seed(31)
+    k = ldpc.get_code(CodeRate.R1_2).k
+    a, b = (torch.randint(0, 2, (64, k), generator=g, device=dev)
+            .to(torch.float32) for _ in range(2))
+
+    def tx(info):
+        return TP.tx_cox_frame(COX_CFG, Modulation.DQPSK, CodeRate.R1_2,
+                               info, lead=1504, tail=1024)
+
+    want_a, want_b = tx(a), tx(b)
+    replays = TP.tx_replays
+    got_a, got_b = tx(a), tx(b)
+    assert TP.tx_replays == replays + 2
+    assert torch.equal(got_a, want_a) and torch.equal(got_b, want_b)
+    assert not torch.equal(got_a, got_b)
+
+
+# ---------------------------------------------------------------------------
+# The pilot-tracking kernel (csrc/pilot_track.cu)
+# ---------------------------------------------------------------------------
+
+#: The kernel against the scan's PyTorch step on the same card tensors:
+#: LLRs (which lie in [-10, 10]) and the tracked state.  The kernel sums
+#: over carriers in another order than PyTorch's reductions, and the
+#: difference is carried by the state from symbol to symbol.
+TRACK_LLR_ATOL = 2e-3
+TRACK_RTOL, TRACK_ATOL = 1e-3, 1e-4
+
+
+@pytest.mark.parametrize("B", [1, 7, 2048])
+def test_pilot_track_kernel_against_the_plain_step(dev, B, monkeypatch):
+    """The DQPSK scan through the kernel (one launch a symbol) against the
+    same scan through PyTorch's operations on the same card tensors: the
+    LLRs within TRACK_LLR_ATOL and of the same sign wherever the plain
+    LLR's magnitude passes it, and every tracked state field close."""
+    from projectultra_tpu_torch.ofdm import demodulator as TDM
+    from projectultra_tpu_torch.ops import cuda_track
+    args = _scan_inputs(dev, "dqpsk", B, seed=B + 11)
+    S = args[3].shape[1]
+    before = cuda_track.launches
+    state, llrs = TDM._scan_eager(*args)
+    assert cuda_track.launches == before + S
+    monkeypatch.setattr(TDM, "_fused_tracking", lambda *_a: False)
+    plain_state, plain = TDM._scan_eager(*args)
+    assert cuda_track.launches == before + S
+    assert float((llrs - plain).abs().max()) <= TRACK_LLR_ATOL
+    sure = plain.abs() > TRACK_LLR_ATOL
+    assert torch.equal(llrs[sure] > 0, plain[sure] > 0)
+    for field in cuda_track.FIELDS:
+        a, b = getattr(state, field), getattr(plain_state, field)
+        assert a.dtype == b.dtype, field
+        if a.dtype in (torch.bool, torch.int32):
+            assert torch.equal(a, b), field
+        else:
+            assert torch.allclose(a, b, rtol=TRACK_RTOL, atol=TRACK_ATOL), \
+                field
+
+
+def test_pilot_track_kernel_on_the_cox_step(dev, monkeypatch):
+    """The Cox receiver at the cell's shape through the kernel and through
+    the plain step: the same bits, ok flags and iterations on every
+    lane."""
+    from projectultra_tpu_torch.ofdm import demodulator as TDM
+    _, rx = _cox_buffers(dev, 2048, seed=13)
+    out = TSC.decode_cox_batch(COX_CFG, Modulation.DQPSK, CodeRate.R1_2, rx)
+    monkeypatch.setattr(TDM, "_fused_tracking", lambda *_a: False)
+    TDM._scan_graphs.clear()
+    plain = TSC.decode_cox_batch(COX_CFG, Modulation.DQPSK, CodeRate.R1_2,
+                                 rx)
+    for a, b in zip(out[:3], plain[:3]):
+        assert torch.equal(a, b)
