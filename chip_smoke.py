@@ -106,9 +106,9 @@ Phases:
    through the plain version (found and lts_start identical on every
    lane);
 7. runs the Cox path: ok rate >= 0.99 with exact info bits on ok lanes
-   over 32 buffers, the three kernels' launch counters grown (the
+   over 32 buffers, the four kernels' launch counters grown (the
    pilot-tracking kernel's once a symbol at each replay of the scan's
-   CUDA graph), a 30 Hz CFO buffer at 20 dB by the same gate, and 64
+   CUDA graph, the LTS timing kernel's once a detection), a 30 Hz CFO buffer at 20 dB by the same gate, and 64
    lanes equal to the CPU path; times it (frames/s, per stage, idle
    share), the window kernel against its plain version and the LDPC
    kernel against the plain decoder on a Cox buffer's LLRs (lane-exact,
@@ -117,7 +117,12 @@ Phases:
    the engine's B = 1 (LLRs within 2e-3 and signs equal on all but at
    most 0.2% of the lanes, those a near-tie sent down another branch)
    and times one symbol's launch against that step and the kernel's
-   bound;
+   bound; holds the LTS timing kernel (``csrc/lts_timing.cu``) to the
+   plain FFT matched filter through ``detect_preamble`` at the Cox cell's
+   B = 2,048 and the engine's B = 1 view with the deep gates (every
+   output equal but lts_corr, within 1e-5) and times one gate set's
+   launch against the plain version and the kernel's bound (9.0 GFLOP,
+   0.134 ms at the cell);
 8. chirp detection on the card against the CPU path on 64 lanes of a
    5 dB chirp-cell buffer (success and every position identical, cfo
    within 1e-3 Hz);
@@ -324,8 +329,8 @@ from projectultra_tpu_torch.ofdm import demodulator as D
 from projectultra_tpu_torch.ofdm import modulator as M
 from projectultra_tpu_torch.ofdm import pipeline as P
 from projectultra_tpu_torch.ops import (cuda_build, cuda_decimate,
-                                        cuda_dpsk, cuda_ldpc, cuda_sc,
-                                        cuda_track)
+                                        cuda_dpsk, cuda_ldpc, cuda_lts,
+                                        cuda_sc, cuda_track)
 from projectultra_tpu_torch.ops import dpsk_score as DS
 from projectultra_tpu_torch.ops import ldpc as ldpc_ops
 from projectultra_tpu_torch.ops.sc_windows import sc_windows_plain
@@ -402,6 +407,12 @@ KERNELS = {  # name -> (wrapper module, TPU kernel it replaces)
                     "projectultra_tpu/ofdm/demodulator.py "
                     "update_channel_estimate, equalize, demodulate_symbol "
                     "(the scan's body, XLA)"),
+    # Schmidl-Cox LTS fine timing at each lane's window: XLA's FFT matched
+    # filter, window energies and masked argmax over the whole buffer in
+    # the JAX package, ~40 eager operators in the plain version.
+    "lts_timing": (cuda_lts,
+                   "projectultra_tpu/sync/schmidl_cox.py::detect_preamble "
+                   "LTS matched filter and masked argmax (XLA FFTs)"),
 }
 BF16 = torch.bfloat16
 
@@ -586,6 +597,14 @@ def track_bound(B: int, Cd: int, Np: int, Ci: int):
     return bound(n_bytes, B * (80 * Np + 20 * Ci + 60 * Cd))
 
 
+def lts_bound(B: int, P: int, L: int):
+    """LTS timing's bound at B lanes of P window positions and a template
+    of L: each lane's P + L - 1 samples and the template read once, three
+    outputs written; 2 L float32 fused multiply-adds (4 operations a tap)
+    a position for the matched filter alone."""
+    return bound(B * (P + L - 1) * 4 + L * 8 + B * 12, B * P * L * 4)
+
+
 #: (kernel, shape, kernel ms, bound ms, basis) of every timed shape.
 SHAPES: list = []
 
@@ -597,7 +616,8 @@ KERNEL_EVENT = {"ldpc_minsum": "ldpc_minsum_kernel",
                 "sc_windows": "sc_windows_kernel",
                 "dpsk_score": "dpsk_score_kernel",
                 "chirp_decimate": "chirp_decimate_kernel",
-                "pilot_track": "pilot_track_kernel"}
+                "pilot_track": "pilot_track_kernel",
+                "lts_timing": "lts_timing_kernel"}
 
 
 def report_shape(name: str, shape: str, fn, reps: int, bound_ms: float,
@@ -1129,16 +1149,18 @@ def phase_cox_path(dev: torch.device) -> dict:
     torch.cuda.synchronize()
 
     cuda_sc.launches = cuda_ldpc.launches = cuda_track.launches = 0
+    cuda_lts.launches = 0
     replays = D.scan_replays
     outs = [decode_cox(rx) for rx in rx_all]
     torch.cuda.synchronize()
     launches = {"sc_windows": cuda_sc.launches,
                 "ldpc_minsum": cuda_ldpc.launches,
-                "pilot_track": cuda_track.launches}
+                "pilot_track": cuda_track.launches,
+                "lts_timing": cuda_lts.launches}
     print(f"Cox path kernel launches: {launches}, scan graph replays "
           f"{D.scan_replays - replays}", flush=True)
     require(all(n > 0 for n in launches.values()),
-            "the Cox path did not launch its three kernels")
+            "the Cox path did not launch its four kernels")
     require(D.scan_replays > replays,
             "the Cox path did not replay the scan's graph")
     check_cox(outs, info, f"{SNR_DB} dB")
@@ -1338,6 +1360,78 @@ def phase_pilot_track(card: str, rx: torch.Tensor) -> tuple:
                      f"Np={Np} Ci={Ci}",
                      lambda: cuda_track.track_dqpsk_cuda(config, st, fd), 50,
                      bound_ms, by, card)
+        rows.append((err, k_ms, p_ms, bound_ms, by))
+    return rows[0]
+
+
+#: lts_corr through the kernel against the plain FFT matched filter (a
+#: normalised correlation in [0, 1]; the two sum in other orders).
+LTS_CORR_ATOL = 1e-5
+
+
+def lts_view(rx: torch.Tensor) -> torch.Tensor:
+    """The engine's Cox search view: one row of 262,144 samples holding
+    the buffers' frames end to end, zeros after."""
+    row = torch.zeros((1, 262144), device=rx.device)
+    n = min(rx.numel(), 262144) // rx.shape[1] * rx.shape[1]
+    row[0, :n] = rx.reshape(-1)[:n]
+    return row
+
+
+def phase_lts_timing(card: str, rx: torch.Tensor) -> tuple:
+    """The LTS timing kernel at the Cox benchmark cell's B = 2,048 x
+    T = 18,856 (the buffers' rows repeated) and the engine's B = 1 view of
+    262,144 samples with the deep gates: detect_preamble through the kernel
+    against detect_preamble through the plain FFT matched filter on the
+    same card tensors (every output equal but lts_corr, within
+    LTS_CORR_ATOL; one launch a gate set), and one gate set's timing
+    (kernel and plain, the same sync_off) against the kernel's bound.
+    Returns the cell's (max lts_corr difference, call ms, plain ms, bound
+    ms, basis)."""
+    cell = rx.repeat(-(-2048 // rx.shape[0]), 1)[:2048].contiguous()
+    plen = COX_CFG.fft_size + COX_CFG.cyclic_prefix
+    rows = []
+    for label, x, deep in (("Cox cell", cell, False),
+                           ("engine view", lts_view(rx), True)):
+        before = cuda_lts.launches
+        det = SC.detect_preamble(COX_CFG, x, with_deep=deep)
+        launched = cuda_lts.launches - before
+        with mock.patch.object(SC, "lts_timing", lambda c, s, X, so:
+                               SC.lts_timing_plain(c, s, X, so)):
+            ref = SC.detect_preamble(COX_CFG, x, with_deep=deep)
+        torch.cuda.synchronize()
+        ints = all(bool(torch.equal(det[k], ref[k])) for k in ref
+                   if ref[k].dtype in (torch.bool, torch.int32))
+        err = max(float((det[k] - ref[k]).abs().max()) for k in ref
+                  if k.endswith("lts_corr"))
+        print(f"LTS timing kernel vs plain [{label}] B={x.shape[0]} "
+              f"T={x.shape[1]}: integer outputs equal {ints}, max lts_corr "
+              f"difference {err!r} (limit {LTS_CORR_ATOL}), launches "
+              f"{launched}, found {int(det['found'].sum())}", flush=True)
+        require(launched == (2 if deep else 1) and ints
+                and err <= LTS_CORR_ATOL,
+                f"the LTS timing kernel differs from the plain path "
+                f"({label})")
+
+        B, T = x.shape
+        sync_off = det["sync_off"].to(torch.int64)
+        X = torch.fft.fft(x.to(torch.complex64), n=SC._n_fft(T), dim=-1)
+        k_ms, p_ms = time_pair(
+            lambda: cuda_lts.lts_timing_cuda(COX_CFG, x, sync_off, X[:, 0]),
+            lambda: SC.lts_timing_plain(COX_CFG, x, X, [sync_off]), 20, 5)
+        plan = cuda_lts.card_plan(B, plen, plen, T, x.device)
+        P = cuda_lts.max_positions(plen)
+        print(f"LTS timing [{label}] B={B} T={T}: kernel {k_ms!r} ms, plain "
+              f"(the matched filter's inverse FFT, the L = {plen} window "
+              f"energies, the normalisation and the masked argmax over "
+              f"{T - plen + 1} positions) {p_ms!r} ms a gate set (calls, "
+              f"CUDA events) on {card}; launch plan {plan}", flush=True)
+        bound_ms, by = lts_bound(B, P, plen)
+        report_shape("lts_timing", f"{label}, B={B}, T={T}, {P} positions "
+                     f"a lane, L={plen}",
+                     lambda: cuda_lts.lts_timing_cuda(COX_CFG, x, sync_off,
+                                                      X[:, 0]),
+                     20, bound_ms, by, card)
         rows.append((err, k_ms, p_ms, bound_ms, by))
     return rows[0]
 
@@ -3883,6 +3977,8 @@ def main() -> None:
     sc_ms, sc_plain_ms, sc_bound_ms, sc_by = phase_cox_timing(dev, card)
     track_row = phase_pilot_track(card, noisy_buffers(
         tx, torch.Generator(device=dev).manual_seed(21), 1)[0])
+    lts_row = phase_lts_timing(card, noisy_buffers(
+        tx, torch.Generator(device=dev).manual_seed(22), 1)[0])
 
     _, tx = chirp_tx(dev, 30)
     phase_chirp_detection(noisy_buffers(
@@ -3927,15 +4023,19 @@ def main() -> None:
     # acquired benchmark cell's shape; the pilot-tracking kernel's in the
     # Cox path, its max_abs_err the largest LLR difference from the
     # PyTorch step, ms and bound_ms one symbol at the Cox benchmark cell's
-    # shape).  ms and bound_ms at that path's shape; no single PyTorch call
-    # computes any of the six (library_ms null).
+    # shape; the LTS timing kernel's in the Cox path, its max_abs_err the
+    # largest lts_corr difference from the plain FFT matched filter, ms and
+    # bound_ms one gate set at the Cox cell's shape).  ms and bound_ms at
+    # that path's shape; no single PyTorch call computes any of the seven
+    # (library_ms null).
     rows = [("ldpc_minsum", ldpc_launches, ldpc_err, ldpc_ms, ldpc_plain_ms,
              ldpc_bound_ms, ldpc_by),
             ("sc_windows", cox_launches["sc_windows"], sc_err, sc_ms,
              sc_plain_ms, sc_bound_ms, sc_by),
             ("ldpc_minsum_bf16", *bf16_row), ("dpsk_score", *dpsk_row),
             ("chirp_decimate", decimate_launches, *decimate_row),
-            ("pilot_track", cox_launches["pilot_track"], *track_row)]
+            ("pilot_track", cox_launches["pilot_track"], *track_row),
+            ("lts_timing", cox_launches["lts_timing"], *lts_row)]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source_of(name),
          "replaces": KERNELS[name][1], "launches": launches,

@@ -9,9 +9,12 @@ the SEARCHING state of src/ofdm/demodulator.cpp:462-600).
   (``detect_preamble``);
 * plateau confirmation (>= 15 of the 8-strided offsets in a 300-sample
   window above the plateau gate) becomes windowed counts over that grid;
-* LTS fine timing is an FFT matched filter against the passband LTS
-  template with a masked argmax; it shares the signal FFT with the Hilbert
-  transform.
+* LTS fine timing is a matched filter against the passband LTS template
+  with a masked argmax around each lane's coarse position
+  (``lts_timing``): on the card one hand-written kernel that evaluates
+  only each lane's search window (``ops/cuda_lts.py``); elsewhere
+  ``lts_timing_plain``, an FFT matched filter over the whole buffer that
+  shares the signal FFT with the Hilbert transform.
 
 ``decode_ofdm_cox`` and ``hunt_for_codeword`` are the JAX package's two Cox
 receivers; ``demodulate_detected`` and ``decode_cox_batch`` are the
@@ -34,6 +37,7 @@ from ..ofdm import carriers as carriers_mod
 from ..fec.interleave import channel_interleaver
 from ..ofdm import demodulator as demod_mod
 from ..ofdm import pipeline as ofdm_pipeline
+from ..ops import cuda_lts
 from ..ops import ldpc as ldpc_ops
 from ..ops import mixer as mixer_ops
 from ..ops.sc_windows import sc_windows
@@ -129,6 +133,76 @@ def _lts_filter(config: ModemConfig, n_fft: int,
     return torch.fft.fft(tmpl, n=n_fft).conj()
 
 
+@functools.lru_cache(maxsize=None)
+def lts_energy_ref(config: ModemConfig) -> float:
+    """Half the LTS template's energy, the matched filter's normaliser."""
+    return float((np.abs(lts_passband_template(config)) ** 2).sum()) * 0.5
+
+
+def _pick(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return x.gather(1, idx[:, None])[:, 0]
+
+
+def lts_timing_plain(config: ModemConfig, samples: torch.Tensor,
+                     X: torch.Tensor, sync_offs: list) -> list:
+    """LTS fine timing (ofdm_sync.cpp:386-466) of [B, T] samples, whose
+    signal FFT is ``X``, at each of ``sync_offs`` ([B] int64 coarse
+    positions, one a gate set): the normalised matched filter over the
+    whole buffer, made once, and for each gate set its first argmax in the
+    search window [-3*plen, +plen/2] around sync_off + 4*plen and the
+    one-symbol rule.  Returns one (lts_start, data_start, lts_corr) of [B]
+    tensors (int32, int32, float32) a gate set.  The CPU path, and the
+    LTS timing kernel's oracle on the card."""
+    B, T = samples.shape
+    plen = config.fft_size + config.cyclic_prefix
+    dev = samples.device
+    L = len(lts_passband_template(config))
+    e_ref = lts_energy_ref(config)
+    mf = torch.fft.ifft(X * _lts_filter(config, X.shape[-1], dev),
+                        dim=-1)[:, :T - L + 1].abs()
+    energy = _window_sum(samples * samples, L)
+    nmf = torch.where(energy * e_ref > 1e-12,
+                      mf / torch.sqrt(torch.clamp(energy * e_ref,
+                                                  min=1e-30)),
+                      0.0)
+    n_mf = nmf.shape[-1]
+    pos = torch.arange(n_mf, device=dev)[None, :]
+    out = []
+    for sync_off in sync_offs:
+        coarse_lts = sync_off + 4 * plen
+        win = (pos >= (coarse_lts - 3 * plen)[:, None]) \
+            & (pos <= (coarse_lts + plen // 2)[:, None])
+        lts_start = torch.argmax(torch.where(win, nmf, -1.0), dim=-1)
+        lts_corr = _pick(nmf, lts_start)
+        # The two LTS symbols are identical, so the matched filter has a
+        # one-symbol ambiguity: if a comparable peak lies one symbol
+        # EARLIER (still in the window), prefer it.
+        prev_pos = torch.clamp(lts_start - plen, 0, n_mf - 1)
+        prev_corr = _pick(nmf, prev_pos)
+        prev_in_win = (lts_start - plen) >= (coarse_lts - 3 * plen)
+        take_prev = prev_in_win & (prev_corr >= 0.85 * lts_corr)
+        lts_start = torch.where(take_prev, prev_pos, lts_start)
+        lts_corr = torch.where(take_prev, prev_corr, lts_corr)
+        # The first data sample follows the two LTS.
+        out.append((lts_start.to(torch.int32),
+                    (lts_start + 2 * plen).to(torch.int32), lts_corr))
+    return out
+
+
+def lts_timing(config: ModemConfig, samples: torch.Tensor, X: torch.Tensor,
+               sync_offs: list) -> list:
+    """Device dispatch of LTS fine timing: on a CUDA tensor one launch of
+    the LTS timing kernel a gate set (``ops/cuda_lts.py``: the window's
+    positions only, the non-finite lanes read from X's DC bin), on any
+    other ``lts_timing_plain``.  Arguments and result as
+    ``lts_timing_plain``'s."""
+    with metrics.span("cox.lts", samples):
+        if samples.device.type == "cuda":
+            return [cuda_lts.lts_timing_cuda(config, samples, s, X[:, 0])
+                    for s in sync_offs]
+        return lts_timing_plain(config, samples, X, sync_offs)
+
+
 def search_grid_size(config: ModemConfig, T: int) -> int:
     """Points G of ``detect_preamble``'s stride-8 candidate grid on a
     buffer of T samples: every correlation window must end inside the
@@ -148,8 +222,9 @@ def detect_preamble(config: ModemConfig, samples: torch.Tensor,
     """Batched SEARCHING logic on [B, T] float32 samples: Schmidl-Cox
     plateau -> coarse CFO -> LTS fine timing (demodulator.cpp:474-599).
 
-    ``with_deep`` also evaluates the DEEP_* gate set on the same metric and
-    matched-filter arrays and returns it under "deep_"-prefixed keys.
+    ``with_deep`` also evaluates the DEEP_* gate set on the same metric,
+    with its own LTS timing (``lts_timing``: one more kernel launch on the
+    card), and returns it under "deep_"-prefixed keys.
 
     Returns a dict of [B] tensors: found (bool), data_start (first data
     sample), cfo_hz, peak_corr, lts_corr, lts_start, sync_off (int32 but
@@ -199,25 +274,7 @@ def detect_preamble(config: ModemConfig, samples: torch.Tensor,
         max_start = n_off - 6 * plen - 2 * plen
         rel = torch.arange(win_pts, device=dev)
 
-        # LTS fine-timing matched filter, shared by both gate sets
-        # (ofdm_sync.cpp:386-466).
-        tmpl = lts_passband_template(config)
-        L = len(tmpl)
-        e_ref = float((np.abs(tmpl) ** 2).sum()) * 0.5
-        mf = torch.fft.ifft(X * _lts_filter(config, n_fft, dev),
-                            dim=-1)[:, :T - L + 1].abs()
-        energy = _window_sum(samples * samples, L)
-        nmf = torch.where(energy * e_ref > 1e-12,
-                          mf / torch.sqrt(torch.clamp(energy * e_ref,
-                                                      min=1e-30)),
-                          0.0)
-        n_mf = nmf.shape[-1]
-        pos = torch.arange(n_mf, device=dev)[None, :]
-
-        def pick(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-            return x.gather(1, idx[:, None])[:, 0]
-
-        def run_gates(sync_t, plat_t, min_plat, lts_t) -> dict:
+        def coarse(sync_t, plat_t, min_plat) -> dict:
             # Plateau count in [g, g+300] on the grid: 38 points.
             above = (gcorr >= plat_t).to(torch.float32)
             counts = _window_sum(above, win_pts)              # [B, G-win+1]
@@ -233,50 +290,36 @@ def detect_preamble(config: ModemConfig, samples: torch.Tensor,
             wcorr = gcorr.gather(1, win_idx)
             peak_rel = torch.argmax(wcorr, dim=-1)
             gidx = torch.clamp(first + peak_rel, 0, G - 1)
-            sync_off = grid[gidx]
-            peak_corr = pick(wcorr, peak_rel)
 
             # Coarse CFO from P at the sync offset (ofdm_sync.cpp:230-258).
-            phase = torch.angle(pick(gP, gidx))
+            phase = torch.angle(_pick(gP, gidx))
             cfo = phase * config.sample_rate / (math.pi * N)
             max_cfo = config.sample_rate / N
             cfo = torch.clamp(cfo, -max_cfo, max_cfo)
-
-            # LTS fine timing around sync_off + 4*plen, search
-            # [-3*plen, +plen/2].
-            coarse_lts = sync_off + 4 * plen
-            win = (pos >= (coarse_lts - 3 * plen)[:, None]) \
-                & (pos <= (coarse_lts + plen // 2)[:, None])
-            lts_start = torch.argmax(torch.where(win, nmf, -1.0), dim=-1)
-            lts_corr = pick(nmf, lts_start)
-            # The two LTS symbols are identical, so the matched filter has a
-            # one-symbol ambiguity: if a comparable peak lies one symbol
-            # EARLIER (still in the window), prefer it.
-            prev_pos = torch.clamp(lts_start - plen, 0, n_mf - 1)
-            prev_corr = pick(nmf, prev_pos)
-            prev_in_win = (lts_start - plen) >= (coarse_lts - 3 * plen)
-            take_prev = prev_in_win & (prev_corr >= 0.85 * lts_corr)
-            lts_start = torch.where(take_prev, prev_pos, lts_start)
-            lts_corr = torch.where(take_prev, prev_corr, lts_corr)
-
-            found = found_sc & (lts_corr >= lts_t)
-            i32 = torch.int32
-            return {"found": found,
-                    # The first data sample, after the two LTS.
-                    "data_start": (lts_start + 2 * plen).to(i32),
-                    "cfo_hz": cfo, "peak_corr": peak_corr,
-                    "lts_corr": lts_corr, "lts_start": lts_start.to(i32),
-                    "sync_off": sync_off.to(i32)}
+            return {"found_sc": found_sc, "sync_off": grid[gidx],
+                    "cfo_hz": cfo, "peak_corr": _pick(wcorr, peak_rel)}
 
         if lts_threshold is None:
             lts_threshold = 0.05 if config.fft_size >= 1024 else 0.35
-        out = run_gates(sync_threshold, plateau_threshold, min_plateau,
-                        lts_threshold)
+        gates = {"": (sync_threshold, plateau_threshold, min_plateau,
+                      lts_threshold)}
         if with_deep:
-            deep = run_gates(DEEP_SYNC_THRESHOLD, DEEP_PLATEAU_THRESHOLD,
-                             DEEP_MIN_PLATEAU, min(DEEP_LTS_THRESHOLD,
-                                                   lts_threshold))
-            out.update({"deep_" + k: v for k, v in deep.items()})
+            gates["deep_"] = (DEEP_SYNC_THRESHOLD, DEEP_PLATEAU_THRESHOLD,
+                              DEEP_MIN_PLATEAU,
+                              min(DEEP_LTS_THRESHOLD, lts_threshold))
+        sets = {prefix: coarse(*g[:3]) for prefix, g in gates.items()}
+        # LTS fine timing around each gate set's sync_off + 4*plen.
+        timing = lts_timing(config, samples, X,
+                            [c["sync_off"] for c in sets.values()])
+        out = {}
+        for (prefix, c), (lts_start, data_start, lts_corr) in zip(
+                sets.items(), timing):
+            found = c["found_sc"] & (lts_corr >= gates[prefix][3])
+            det = {"found": found, "data_start": data_start,
+                   "cfo_hz": c["cfo_hz"], "peak_corr": c["peak_corr"],
+                   "lts_corr": lts_corr, "lts_start": lts_start,
+                   "sync_off": c["sync_off"].to(torch.int32)}
+            out.update({prefix + k: v for k, v in det.items()})
         return out
 
 

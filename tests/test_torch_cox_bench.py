@@ -23,8 +23,8 @@ CELL = "ofdm_cox-acquire-17db-b2048"
 #: The Cox step's program spans in the order they open, with the parent
 #: of each.
 SPAN_TREE = [("cox.tx", None), ("noise.awgn", None), ("cox.rx", None),
-             ("cox.detect", "cox.rx"), ("ofdm.scan", "cox.rx"),
-             ("ldpc.decode", "cox.rx")]
+             ("cox.detect", "cox.rx"), ("cox.lts", "cox.detect"),
+             ("ofdm.scan", "cox.rx"), ("ldpc.decode", "cox.rx")]
 
 
 def _entry(seed, step=0):

@@ -104,6 +104,17 @@ B = 1, 7, 2,048): LLRs within 2e-3 and of the same sign, the tracked
 state within rtol 1e-3, atol 1e-4 (the kernel sums over carriers in
 another order); one launch a symbol; the Cox step's bits, ok flags and
 iterations equal through either.
+
+The LTS timing kernel (``csrc/lts_timing.cu``) against the plain FFT
+matched filter (``sync/schmidl_cox.lts_timing_plain``) on the same card
+tensors: ``detect_preamble``'s every output equal but ``lts_corr``, within
+1e-5, at the Cox cell's B = 2,048 x T = 18,856, the engine's B = 1 view
+of 262,144 samples with the deep gates, NVIS (plen 1,120) and lanes with
+a NaN, +inf or -inf sample or all zeros (NaN where the plain version has
+NaN); at given sync_offs whose windows are clipped or empty; on strided
+and one-row views; one launch a gate set and none on the CPU; its launch
+plan as the library computes it; its wrapper's checks.  The Cox step goes
+through it without a synchronisation.
 """
 
 import os
@@ -119,7 +130,7 @@ from projectultra_tpu_torch.config import (CodeRate, ModemConfig,  # noqa: E402
 from projectultra_tpu_torch.fec import ldpc  # noqa: E402
 from projectultra_tpu_torch.ofdm import pipeline as TP  # noqa: E402
 from projectultra_tpu_torch.ops import (cuda_decimate, cuda_dpsk,  # noqa: E402
-                                        cuda_ldpc, cuda_sc)
+                                        cuda_ldpc, cuda_lts, cuda_sc)
 from projectultra_tpu_torch.ops import dpsk_score as TDS  # noqa: E402
 from projectultra_tpu_torch.ops import ldpc as T  # noqa: E402
 from projectultra_tpu_torch.ops import sc_windows as TSW  # noqa: E402
@@ -713,12 +724,14 @@ def test_cox_step_never_synchronises(dev):
 
     step()
     torch.cuda.synchronize()
+    lts = cuda_lts.launches
     torch.cuda.set_sync_debug_mode("error")
     try:
         out, ok, _, _ = step()
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(ok.all()) and torch.equal(out, info)
+    assert cuda_lts.launches == lts + 1
 
 
 # ---------------------------------------------------------------------------
@@ -1655,7 +1668,7 @@ def test_cox_entry_spans_on_the_card(dev):
     assert torch.equal(again["bits"], out["bits"])
     assert torch.equal(again["tx"], out["tx"])
     assert [s.name for s in spans] == ["cox.tx", "noise.awgn", "cox.rx",
-                                       "cox.detect", "ofdm.scan",
+                                       "cox.detect", "cox.lts", "ofdm.scan",
                                        "ldpc.decode"]
     by_id = {s.id: s for s in spans}
     for s in spans:
@@ -1778,3 +1791,180 @@ def test_pilot_track_kernel_on_the_cox_step(dev, monkeypatch):
                                  rx)
     for a, b in zip(out[:3], plain[:3]):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The LTS timing kernel (csrc/lts_timing.cu)
+# ---------------------------------------------------------------------------
+
+#: lts_corr (a normalised correlation in [0, 1]) through the kernel against
+#: the plain FFT matched filter: the kernel sums the window directly, the
+#: plain version through float32 FFTs and cumulative sums.
+LTS_CORR_ATOL = 1e-5
+
+
+def _plain_lts(monkeypatch):
+    """Route ``detect_preamble``'s LTS timing through the plain version
+    (the kernel's oracle) on the card."""
+    monkeypatch.setattr(TSC, "lts_timing",
+                        lambda c, s, X, so: TSC.lts_timing_plain(c, s, X, so))
+
+
+def _assert_same_timing(got, want):
+    """(lts_start, data_start, lts_corr) of the kernel against the plain
+    version's: positions equal, correlations within LTS_CORR_ATOL and NaN
+    exactly where the plain version has NaN."""
+    for a, b in zip(got[:2], want[:2]):
+        assert a.dtype == b.dtype == torch.int32
+        assert torch.equal(a, b)
+    a, b = got[2], want[2]
+    assert a.dtype == b.dtype == torch.float32
+    assert torch.equal(torch.isnan(a), torch.isnan(b))
+    keep = ~torch.isnan(b)
+    assert float((a[keep] - b[keep]).abs().max()) <= LTS_CORR_ATOL
+
+
+def _assert_same_detection(det, ref):
+    assert det.keys() == ref.keys()
+    for key in ref:
+        if ref[key].dtype in (torch.bool, torch.int32):
+            assert torch.equal(det[key], ref[key]), key
+        elif key.endswith("lts_corr"):
+            assert torch.equal(torch.isnan(det[key]), torch.isnan(ref[key]))
+            keep = ~torch.isnan(ref[key])
+            assert float((det[key][keep] - ref[key][keep]).abs().max()) \
+                <= LTS_CORR_ATOL, key
+        else:
+            torch.testing.assert_close(det[key], ref[key], rtol=0, atol=0,
+                                       equal_nan=True, msg=key)
+
+
+def _engine_view(dev):
+    """The engine's Cox search view: one row of ACQ_VIEW_CAP = 262,144
+    samples holding the cell's frames end to end, zeros after."""
+    _, rx = _cox_buffers(dev, 13, seed=21)
+    row = torch.zeros((1, 262144), device=dev)
+    row[0, :rx.numel()] = rx.reshape(-1)
+    return row
+
+
+def _lts_case(dev, case):
+    """(config, samples, with_deep) of a named case."""
+    if case == "cell":
+        return COX_CFG, _cox_buffers(dev, 2048, seed=23)[1], False
+    if case == "engine":
+        return COX_CFG, _engine_view(dev), True
+    if case == "nvis":
+        cfg, _, rx = _nvis_buffers(dev, Modulation.QAM32, CodeRate.R3_4,
+                                   30.0, 64)
+        return cfg, rx, True
+    _, rx = _cox_buffers(dev, 16, seed=24)
+    rx = rx.clone()
+    rx[3, 5000], rx[7, 9000], rx[11, 100] = (float("nan"), float("inf"),
+                                             float("-inf"))
+    rx[13] = 0.0
+    return COX_CFG, rx, True
+
+
+@pytest.mark.parametrize("case", ["cell", "engine", "nvis", "nonfinite"])
+def test_lts_kernel_detection_equals_plain(dev, monkeypatch, case):
+    """detect_preamble through the kernel against detect_preamble with the
+    plain LTS timing on the same card tensors: every output equal but
+    lts_corr, within LTS_CORR_ATOL (NaN where the plain has NaN); one
+    launch a gate set."""
+    cfg, rx, deep = _lts_case(dev, case)
+    before = cuda_lts.launches
+    det = TSC.detect_preamble(cfg, rx, with_deep=deep)
+    assert cuda_lts.launches == before + (2 if deep else 1)
+    _plain_lts(monkeypatch)
+    ref = TSC.detect_preamble(cfg, rx, with_deep=deep)
+    assert cuda_lts.launches == before + (2 if deep else 1)
+    _assert_same_detection(det, ref)
+    if case in ("cell", "nvis"):
+        assert det["found"].all()
+    if case == "nonfinite":
+        assert not det["found"][[3, 7, 11, 13]].any()
+        assert torch.isnan(det["lts_corr"][[3, 7, 11]]).all()
+
+
+def test_lts_kernel_at_clipped_and_empty_windows(dev):
+    """lts_timing_cuda at given sync_offs: windows clipped at the buffer's
+    start (negative offsets) and end, windows past the end (empty: position
+    0), a lane of zeros and one with a NaN sample, against the plain
+    version at the same offsets."""
+    _, rx = _cox_buffers(dev, 12, seed=25)
+    rx = rx.clone()
+    rx[9] = 0.0
+    rx[10, 7000] = float("nan")
+    T = rx.shape[1]
+    plen = COX_CFG.fft_size + COX_CFG.cyclic_prefix
+    offs = torch.tensor([0, -4 * plen, -4 * plen - 100, -10 ** 9,
+                         T - 5 * plen, T - 4 * plen, T, 10 ** 12, 1504,
+                         3000, 1504, 1504], device=dev)
+    X = torch.fft.fft(rx.to(torch.complex64), n=TSC._n_fft(T), dim=-1)
+    got = cuda_lts.lts_timing_cuda(COX_CFG, rx, offs, X[:, 0])
+    want = TSC.lts_timing_plain(COX_CFG, rx, X, [offs])[0]
+    _assert_same_timing(got, want)
+    assert int(got[0][7]) == 0 and int(got[0][6]) == 0
+
+
+def test_lts_kernel_reads_views(dev):
+    """A row-strided view of wider buffers and a one-row view: the same
+    timing as the contiguous copy."""
+    _, rx = _cox_buffers(dev, 8, seed=26)
+    wide = torch.zeros((8, rx.shape[1] + 37), device=dev)
+    wide[:, 5:5 + rx.shape[1]] = rx
+    view = wide[:, 5:5 + rx.shape[1]]
+    T = rx.shape[1]
+    X = torch.fft.fft(rx.to(torch.complex64), n=TSC._n_fft(T), dim=-1)
+    offs = torch.full((8,), 1504, device=dev)
+    want = cuda_lts.lts_timing_cuda(COX_CFG, rx, offs, X[:, 0])
+    got = cuda_lts.lts_timing_cuda(COX_CFG, view, offs, X[:, 0])
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    one = cuda_lts.lts_timing_cuda(COX_CFG, view[2:3], offs[:1], X[2:3, 0])
+    for a, b in zip(one, want):
+        assert torch.equal(a, b[2:3])
+
+
+def test_lts_kernel_launches_counted(dev):
+    """One launch a detect_preamble on the card, two with_deep, none on
+    the CPU."""
+    _, rx = _cox_buffers(dev, 4, seed=27)
+    before = cuda_lts.launches
+    TSC.detect_preamble(COX_CFG, rx)
+    assert cuda_lts.launches == before + 1
+    TSC.detect_preamble(COX_CFG, rx, with_deep=True)
+    assert cuda_lts.launches == before + 3
+    TSC.detect_preamble(COX_CFG, rx.cpu(), with_deep=True)
+    assert cuda_lts.launches == before + 3
+
+
+def test_lts_kernel_plan(dev):
+    """The launch plan as the library computes it: one block a lane,
+    the shared bytes of ``launch_plan``, blocks resident on every SM."""
+    from projectultra_tpu_torch.config import nvis_mode
+    for cfg, B, T in ((COX_CFG, 2048, 18856), (COX_CFG, 1, 262144),
+                      (nvis_mode(), 64, 40000)):
+        plen = cfg.fft_size + cfg.cyclic_prefix
+        plan = cuda_lts.card_plan(B, plen, plen, T, dev)
+        assert plan["library"] == {"blocks": B, "threads": plan["threads"],
+                                   "shared_bytes": plan["shared_bytes"]}
+        assert plan["blocks_per_sm"] >= 2
+
+
+def test_lts_kernel_wrapper_checks_its_inputs(dev):
+    _, rx = _cox_buffers(dev, 2, seed=28)
+    X = torch.fft.fft(rx.to(torch.complex64), n=TSC._n_fft(rx.shape[1]),
+                      dim=-1)
+    offs = torch.full((2,), 1504, device=dev)
+    with pytest.raises(ValueError):
+        cuda_lts.lts_timing_cuda(COX_CFG, rx.double(), offs, X[:, 0])
+    with pytest.raises(ValueError):
+        cuda_lts.lts_timing_cuda(COX_CFG, rx, offs.int(), X[:, 0])
+    with pytest.raises(ValueError):
+        cuda_lts.lts_timing_cuda(COX_CFG, rx, offs[:1], X[:, 0])
+    with pytest.raises(ValueError):
+        cuda_lts.lts_timing_cuda(COX_CFG, rx[:, :500], offs, X[:, 0])
+    with pytest.raises(ValueError):
+        cuda_lts.lts_timing_cuda(COX_CFG, rx, offs, X[:1, 0])
