@@ -3,8 +3,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's paths through the entry points a user calls, and
-checks them:
+Runs on the card what neither the card suite (``python -m pytest -m cuda
+tests/test_torch_cuda.py``: each hand-written kernel against its plain
+version) nor the benchmark (``benchmark/``: its cells' end-to-end rates)
+runs: the port's whole paths through the entry points a user calls, the
+streaming engine, protocol sessions, sweeps, NCCL, the tools, the
+front-ends and ``bench_torch.py``, each gated; and every kernel's device
+time at its paths' shapes beside its bound (``benchmark/yardstick.py``),
+where each timed kernel's output is first held to its plain version's on
+the same inputs, at the card suite's tolerances.  The paths:
 
 * slice 1, the presynced path -- OFDM_CHIRP (512-FFT, 30 carriers, no
   pilots), DQPSK, LDPC R1/2, 17 dB AWGN -- at a batch of 16,384 frames
@@ -31,10 +38,10 @@ checks them:
   QAM256 R2/3 on the 512-FFT pilot plan, 30 dB, B = 512; single-carrier
   DPSK (BASELINE config #1) through ``decode_dpsk_batch`` at ``medium``
   0 dB B = 256 and ``robust`` -11 dB B = 64 (its preamble search through
-  the hand-written score kernel, ``csrc/dpsk_score.cu``, held to the
-  plain score on each path's correlations, at one NaN and one +inf
-  correlation and on the engine's B = 1 search view, and timed beside the
-  path with the plain score it replaced); the delay-fit retry
+  the hand-written score kernel, ``csrc/dpsk_score.cu``, found and
+  data_start as through the plain score on each path's buffers and on the
+  engine's B = 1 search view, and timed beside the path with the plain
+  score it replaced); the delay-fit retry
   (``high_throughput()``, QAM16 R2/3, 8 codewords, Watterson ``good()``
   then 20 dB, B = 256); the five MFSK presets at their operating points
   through ``decode_mfsk_batch``, B = 256; OTFS through
@@ -82,68 +89,48 @@ Phases:
 
 1. prints the card's name and power limit; no CUDA device -> exit 1;
 2. builds every kernel from ``projectultra_tpu_torch/csrc`` (one nvcc per
-   source, started together);
-3. holds the LDPC kernel against the plain PyTorch decoder on the card
-   (bits, ok flags and iteration counts equal on every lane) on the golden
-   codewords of all five rates and on noisy waterfall batches, and on
-   those batches with +-inf or NaN LLRs in every other lane
-   (``nonfinite_llrs``; totals equal too, NaN to NaN);
-4. holds TX on the card against the reference golden waveform;
-5. runs the slice-1 path: decode rate >= 0.99 with exact info bits on
+   source, started together) and prints ptxas's reports;
+3. holds TX on the card against the reference golden waveform;
+4. runs the slice-1 path: decode rate >= 0.99 with exact info bits on
    every decoded frame, the LDPC kernel's launch counter grown, and the
-   kernel equal to the plain decoder on the same LLRs; times it (per step,
-   per stage, the device's idle share under ``torch.profiler``) and the
-   kernel against the plain decoder;
-6. holds the Schmidl-Cox window kernel against its plain version at
-   stride 1 and 8 (rtol 2e-4, atol 2e-3) on random analytic signals and on
-   Cox buffers, and on one 600,000-sample buffer against float64 (relative
-   error < 1e-4); at one +inf or NaN sample in the Cox buffer and in an
-   engine-shaped B = 1 view (strides 1 and 8, half 256 and 512: non-finite
-   at exactly the plain version's outputs, of the same kind); on a B = 1
-   row of 4,000,000 samples, where every block walks several work items
-   (each comparison prints the launch's plan: tile, items, blocks, ring
-   stages, shared bytes); detection through the kernel against detection
-   through the plain version (found and lts_start identical on every
-   lane);
-7. runs the Cox path: ok rate >= 0.99 with exact info bits on ok lanes
+   kernel equal to the plain decoder on the same LLRs; times the kernel
+   against the plain decoder on those LLRs and on the sigma 0.62
+   waterfall batch (its rate is the ``ofdm_chirp-presynced-17db`` cell's);
+5. runs the Cox path: ok rate >= 0.99 with exact info bits on ok lanes
    over 32 buffers, the four kernels' launch counters grown (the
    pilot-tracking kernel's once a symbol at each replay of the scan's
-   CUDA graph, the LTS timing kernel's once a detection), a 30 Hz CFO buffer at 20 dB by the same gate, and 64
-   lanes equal to the CPU path; times it (frames/s, per stage, idle
-   share), the window kernel against its plain version and the LDPC
-   kernel against the plain decoder on a Cox buffer's LLRs (lane-exact,
-   both timed); holds the pilot-tracking kernel (``csrc/pilot_track.cu``)
-   to the scan's PyTorch step at the Cox benchmark cell's B = 2,048 and
-   the engine's B = 1 (LLRs within 2e-3 and signs equal on all but at
-   most 0.2% of the lanes, those a near-tie sent down another branch)
-   and times one symbol's launch against that step and the kernel's
-   bound; holds the LTS timing kernel (``csrc/lts_timing.cu``) to the
-   plain FFT matched filter through ``detect_preamble`` at the Cox cell's
-   B = 2,048 and the engine's B = 1 view with the deep gates (every
-   output equal but lts_corr, within 1e-5) and times one gate set's
-   launch against the plain version and the kernel's bound (9.0 GFLOP,
-   0.134 ms at the cell);
-8. chirp detection on the card against the CPU path on 64 lanes of a
-   5 dB chirp-cell buffer (success and every position identical, cfo
-   within 1e-3 Hz);
-9. runs the chirp cell: ok rate >= 0.99 with exact info bits on ok lanes
+   CUDA graph, the LTS timing kernel's once a detection), a 30 Hz CFO
+   buffer at 20 dB by the same gate, and 64 lanes equal to the CPU path;
+   times it (frames/s, per stage, idle share), the window kernel against
+   its plain version (within rtol 2e-4, atol 2e-3; with its launch plan:
+   tile, items, blocks, ring stages, shared bytes) and the LDPC kernel
+   against the plain decoder
+   on a Cox buffer's LLRs (lane-exact, both timed); times one symbol's
+   launch of the pilot-tracking kernel (``csrc/pilot_track.cu``) at the
+   Cox benchmark cell's B = 2,048 and the engine's B = 1 against the
+   scan's PyTorch step (LLRs within 2e-3, signs equal) and the kernel's
+   bound, and one gate set of the LTS timing kernel
+   (``csrc/lts_timing.cu``) at the cell's B = 2,048 and the engine's B = 1
+   view against the plain FFT matched filter (positions equal, lts_corr
+   within 1e-5) and the kernel's bound (9.0 GFLOP, 0.134 ms at the
+   cell);
+6. runs the chirp cell: ok rate >= 0.99 with exact info bits on ok lanes
    over 32 buffers, the LDPC kernel's launch counter grown and the
    decimation kernel's by one a buffer, 64 lanes equal to the CPU path;
-   holds the decimation kernel (``csrc/chirp_decimate.cu``) against the
-   plain conv path within 1e-6 of the peak (1e-5 in the bf16 mode) at the
-   acquired benchmark cell's B = 2,048 x T = 83,808 and at the engine's
-   B = 1 view of 262,144 samples, and times both there beside the
-   kernel's bound; times the cell (frames/s best of 2 repeats with noise
-   untimed, per stage, idle share);
-10. holds the LDPC kernel against the plain decoder on the chirp cell's
-    R1/4 5 dB LLRs (every lane equal) and times both;
-11. runs OFDM_CHIRP behind a detected chirp at 0 and 30 Hz of CFO, 17 dB,
-    256 frames each: ok rate >= 0.99 with exact bits;
-12. one ``harness_moderate`` Watterson buffer of the chirp cell at 5 dB:
-    fading taps on the card against the CPU from the same normals (and a
-    finite flutter run over the whole buffer), the channel output against
-    the CPU, and the MC-DPSK ok rate through it (printed, not gated);
-13. slice 5's paths: each asserts the launch counters of the kernels it
+   holds the decimation kernel (``csrc/chirp_decimate.cu``) within 1e-6
+   of the peak to the plain conv path and times both beside its bound at
+   the acquired benchmark cell's B = 2,048 x T = 83,808 and at the
+   engine's B = 1 view of 262,144 samples; times the cell (frames/s best
+   of 2 repeats with noise untimed, per stage, idle share);
+7. holds the LDPC kernel against the plain decoder on the chirp cell's
+   R1/4 5 dB LLRs (every lane equal) and times both;
+8. runs OFDM_CHIRP behind a detected chirp at 0 and 30 Hz of CFO, 17 dB,
+   256 frames each: ok rate >= 0.99 with exact bits;
+9. one ``harness_moderate`` Watterson buffer of the chirp cell at 5 dB:
+   fading taps on the card against the CPU from the same normals (and a
+   finite flutter run over the whole buffer), the channel output against
+   the CPU, and the MC-DPSK ok rate through it (printed, not gated);
+10. slice 5's paths: each asserts the launch counters of the kernels it
     runs grew (the window kernel's on the Cox paths), gates decode rate
     >= 0.99 with exact info bits on every ok lane, holds 8-16 lanes to the
     port's CPU path, and prints ms per buffer, stages and the idle share
@@ -156,13 +143,13 @@ Phases:
     standard pass loses, its LLRs within rtol 1e-3, atol 2e-3 of the CPU
     on 16 lanes.  The LDPC kernel is held lane-exact to the plain decoder
     on the NVIS LLRs (R3/4, R5/6 at B = 512 and 64 x 32) and DPSK
-    ``robust``'s -11 dB R1/4 LLRs, the window kernel to its plain version
-    at half = 512 (strides 8 and 1) on an NVIS buffer; all are timed.
+    ``robust``'s -11 dB R1/4 LLRs and timed; the window kernel is timed at
+    half = 512 on an NVIS buffer.
     The 512-plan QAM256 point draws its info bits and noise with numpy
     (``pilot_high_order_buffers``) and prints the lanes it misses, held to
     the CPU path (tests/test_torch_high_order.py rebuilds them for JAX);
     the delay fit's LDPC decode (2,048 codewords, trap_escape) is timed;
-14. ``phase_engine``: the five ``ref_cli_tx_*.f32`` files (each followed
+11. ``phase_engine``: the five ``ref_cli_tx_*.f32`` files (each followed
     by 8,000 zeros) streamed through ModemEngine on the card and on the
     CPU in 960-sample chunks with a poll after each: the frames
     tests/test_ref_interop.py asserts, and the card's events and consumed
@@ -172,11 +159,11 @@ Phases:
     the real-time factor, poll ms, ms of the poll that delivered each
     frame by waveform, the device's idle share over a profiled 10 s of
     audio and the launches of both kernels printed; both kernels at the
-    engine's shapes (windows over one 262,144-sample search view, B = 1;
-    LDPC at the stream's B = 1 and largest decodes, trap_escape) against
-    their plain versions and timed.  Both kernels' launch counters must
-    grow in each run of the engine;
-15. ``phase_protocol``: the port CLI's ``ptx`` of PING, CONNECT,
+    engine's shapes timed against their plain versions (windows over one
+    262,144-sample search view, B = 1; LDPC at the stream's B = 1 and
+    largest decodes, trap_escape, lane-exact).  Both kernels' launch
+    counters must grow in each run of the engine;
+12. ``phase_protocol``: the port CLI's ``ptx`` of PING, CONNECT,
     DISCONNECT and a text with ``-w ofdm``, ``dpsk`` and ``mcdpsk`` on the
     card against the CPU port (audio within 2e-4, DPSK 5e-4; the same
     report), and ``prx`` of the reference's five files (the same stderr);
@@ -195,7 +182,7 @@ Phases:
     exchanged, transmissions each way, frames decoded, retransmissions,
     transmit and receiving-poll ms; then the LDPC kernel at the sessions'
     largest decode against the plain decoder and its bound;
-16. ``phase_sweep``: every REGRESSION_MATRIX row through ``run_point`` on
+13. ``phase_sweep``: every REGRESSION_MATRIX row through ``run_point`` on
     the card with its own generator, at the batch the earlier phases run
     its waveform at (MC-DPSK and OFDM_CHIRP 256, DPSK ``medium`` 256 and
     ``robust`` 64): decode rate >= the row's minimum and the LDPC kernel
@@ -208,21 +195,19 @@ Phases:
     delivered, else the CPU engine delivers the same ones from the same
     noisy stream), wall time and launches; the Cox row must launch the
     window kernel;
-17. ``phase_parallel``: ``acq_sweep_counts`` at world 1 over NCCL (all 256
+14. ``phase_parallel``: ``acq_sweep_counts`` at world 1 over NCCL (all 256
     frames decoded exactly, the LDPC kernel launched) and at world 2 in
     two spawned processes over gloo sharing the card (counts identical,
     each rank launching the LDPC kernel), the all-reduce's ms; then
     ``dryrun_multichip(2)`` on the card (every step of both ranks
     decodes every frame, each rank launches both kernels);
-18. ``phase_bf16`` (run right after phase 5, on its LLRs): the LDPC
-    kernel's bf16 instantiation against the plain
-    decoder with bf16 messages, lane-exact (bits, ok, iterations) on the
-    main path's 17 dB LLRs (B = 16,384), the sigma 0.62 waterfall batch of
-    16,384, an R1/4 sigma 1.1 batch with trap_escape, a batch of LLRs
-    near +-3e38 and +-1e-40 (``extreme_llrs``) and phase 3's batches with
-    +-inf and NaN LLRs (``nonfinite_llrs``, totals NaN-equal), and its
-    shared bytes per
-    block beside the float32 one's (check-row records); its call ms
+15. ``phase_bf16`` (run right after phase 4, on its LLRs): the LDPC
+    kernel's bf16 instantiation against the plain decoder with bf16
+    messages, lane-exact (bits, ok, iterations) on the main path's 17 dB
+    LLRs (B = 16,384), the sigma 0.62 waterfall batch of 16,384, an R1/4
+    sigma 1.1 batch with trap_escape and a batch of LLRs near +-3e38 and
+    +-1e-40 (``extreme_llrs``), and its shared bytes per block beside the
+    float32 one's (check-row records); its call ms
     beside the float32 kernel's at the first two (CUDA events, turns f32,
     bf16, bf16, f32) and its device ms against its bound at all three
     (the same LLR bytes); tests/test_ldpc.py's two bf16-vs-f32 rate
@@ -233,7 +218,7 @@ Phases:
     detection equal to the CPU's bf16 mode on 64 lanes, frames/s and
     device busy beside the float32 path's on the same buffers); both
     switches restored;
-19. ``phase_tools``: each tool twin's ``main`` on the card, exit 0 and its
+16. ``phase_tools``: each tool twin's ``main`` on the card, exit 0 and its
     JSON result printed with its kernel launches: ``ber_curves --frames
     256`` with float32 and with bf16 messages (every point's FER within
     0.04 of the other; each run through its own kernel only),
@@ -258,13 +243,13 @@ Phases:
     frame-level tools' kernel launches are recorded and both kernels
     timed against their bounds on each tool's smallest and largest
     batch;
-20. ``phase_frontends``: ``tui --sim`` (RESULT: PASS, the LDPC kernel
+17. ``phase_frontends``: ``tui --sim`` (RESULT: PASS, the LDPC kernel
     launched), ``webui --script --port 0`` (PASS, both kernels launched)
     and ``parity_curves --points 5,19,20,21,22`` (MC-DPSK 15 dB poor,
     OFDM_CHIRP 15 dB poor and the three OFDM_COX points over seeds 42-44:
     ours >= the reference's count at every point, the Cox points >= 80%),
     each timed with its kernel launches;
-21. ``phase_bench``: ``python3 bench_torch.py`` as a fresh process (exit
+18. ``phase_bench``: ``python3 bench_torch.py`` as a fresh process (exit
     0; bench.py's keys, three values > 0, both acquisition ok rates >=
     0.99, no main-path failure), then one step of each of its workloads
     in this process with its fast modes on: the bf16 LDPC kernel launched
@@ -281,7 +266,8 @@ strides 8 and 1 on a Cox buffer, stride 8 at half = 512; the engine's
 B = 1 shapes; the bf16 instantiation at the bench's chirp and Cox
 buffers) and printed
 with its bound -- the larger of its bytes over 3.35 TB/s and its float32
-operations over 67 TFLOP/s, counted on the run's own data -- the bound's
+operations over 67 TFLOP/s (``benchmark/yardstick.bound``), counted on
+the run's own data -- the bound's
 basis and the share of the bound the kernel reaches.  There a kernel's
 time is its device time per launch under ``torch.profiler`` (without the
 wrapper's host overhead, which dominates a small batch's call time); the
@@ -317,6 +303,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import bench_torch as BT
+from benchmark import yardstick
 from projectultra_tpu_torch import (CodeRate, ModemConfig, Modulation,
                                     get_code, require_cuda)
 from projectultra_tpu_torch.config import high_throughput, nvis_mode
@@ -356,32 +343,10 @@ RATE = CodeRate.R1_2
 BATCH = 16384          # frames per step, as the JAX bench runs the main path
 SNR_DB = 17.0
 DECODE_GATE = 0.99     # decode-rate gate of the JAX bench
-TIMED_STEPS = 5
-WATERFALL = [(CodeRate.R1_2, 0.62), (CodeRate.R1_4, 1.1)]
 WATERFALL_BATCH = 4096
 GOLDEN_NAMES = {CodeRate.R1_4: "R1_4", CodeRate.R1_2: "R1_2",
                 CodeRate.R2_3: "R2_3", CodeRate.R3_4: "R3_4",
                 CodeRate.R5_6: "R5_6"}
-# The card's published peaks (H100 SXM, 700 W): the bound of a kernel is
-# the larger of its bytes over the memory rate and its operations over the
-# float32 rate outside the tensor cores.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_OPS_PER_S = 67e12
-# float32 operations per edge and iteration of the min-sum decoder: v2c
-# (sub, 2 clamps), two-minima update (abs, 2 compares, 3 selects), c2v
-# (select, sign, scale), the variable sum's add and the syndrome's
-# compare and xor.
-LDPC_OPS_PER_EDGE = 14
-# float32 operations per sample of the window pre-reduction: energy (2 mul,
-# add, accumulate) and correlation (4 mul, 2 add, 2 accumulate).
-SC_OPS_PER_SAMPLE = 12
-# float32 operations of DPSK's score: per sample its energy (hypot: 2 mul,
-# add, sqrt; the square) and its differential (complex product 6, hypot 4,
-# the > 1e-10 compare, the reciprocal, the division's 2 products with 0,
-# 2 adds and 2 scalings); per offset 38 signed complex adds, 38 energy
-# adds, |acc| (4), the scaling and the threshold compare.
-DPSK_OPS_PER_SAMPLE = 5 + 18
-DPSK_OPS_PER_OFFSET = 76 + 38 + 4 + 2
 KERNELS = {  # name -> (wrapper module, TPU kernel it replaces)
     "ldpc_minsum": (cuda_ldpc, "projectultra_tpu/ops/pallas_ldpc.py:102"),
     "sc_windows": (cuda_sc, "projectultra_tpu/ops/pallas_sync.py:44"),
@@ -424,7 +389,13 @@ COX_T = 18856
 COX_CFO_HZ, COX_CFO_SNR_DB = 30.0, 20.0
 HALF = COX_CFG.fft_size // 2
 CP = COX_CFG.cyclic_prefix
+# Kernel against its plain version on the inputs each timing row times,
+# at the card tests' (tests/test_torch_cuda.py) tolerances.
 WINDOW_RTOL, WINDOW_ATOL = 2e-4, 2e-3   # tests/test_pallas_sync.py
+DECIMATE_PEAK_RTOL = 1e-6   # max abs difference over the plain peak
+LTS_CORR_ATOL = 1e-5        # lts_corr, a normalised correlation in [0, 1]
+TRACK_LLR_ATOL = 2e-3       # the tracking kernel's LLRs, signs equal
+DPSK_SCORE_ATOL = 2e-6      # scores lie in [0, 1]
 
 MC = MCP.level10()       # the ModemEngine default, as the JAX bench runs
 CC = MC.chirp_config()
@@ -459,19 +430,6 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 # Decoder inputs
 # ---------------------------------------------------------------------------
-
-def golden_llrs(rate: CodeRate) -> np.ndarray:
-    """[1, n] +-4 LLRs of the reference's golden coded block."""
-    fields = {}
-    with open(GOLDEN / f"golden_ldpc_{GOLDEN_NAMES[rate]}.txt") as f:
-        for line in f:
-            toks = line.split()
-            fields.update(zip(toks[::2], toks[1::2]))
-    code = get_code(rate)
-    coded = np.unpackbits(np.frombuffer(bytes.fromhex(fields["coded"]),
-                                        np.uint8))[:code.n]
-    return (4.0 * (1.0 - 2.0 * coded.astype(np.float32)))[None]
-
 
 def waterfall_llrs(rate: CodeRate, sigma: float, B: int,
                    seed: int = 1234) -> np.ndarray:
@@ -520,60 +478,29 @@ def compare_decoders(rate: CodeRate, llrs: torch.Tensor, label: str,
 
 # ---------------------------------------------------------------------------
 # Bounds: the least time the card could take for a kernel's work
+# (``benchmark/yardstick.py``: the card's peaks, ``bound``, ``sc_bound``,
+# ``dpsk_bound``, ``ldpc_bound``; the three below are written on its
+# ``bound``).  The yardstick is part of the benchmark and changes only
+# with it: an edit there moves these bounds too.
 # ---------------------------------------------------------------------------
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    """(ms, "bytes" or "operations"): the larger of the two times."""
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def ldpc_passes(graph, llrs: torch.Tensor, trap_escape: bool = False,
-                msg_dtype: torch.dtype = torch.float32):
-    """Iterations each lane of this run's data needs: iters + 1 for a lane
-    that converges, max_iters for one that does not; with ``trap_escape``
-    a lane that fails the first pass adds the retry's."""
+def ldpc_run_bound(graph, llrs: torch.Tensor, trap_escape: bool,
+                   msg_dtype: torch.dtype) -> tuple[float, str, float]:
+    """``yardstick.ldpc_bound`` on this run's data: the iterations each
+    lane runs (``yardstick.ldpc_passes`` of the kernel's own counts), a
+    lane that fails the first pass adding its retry's with
+    ``trap_escape``.  Returns (ms, basis, mean iterations run)."""
     _, ok1, it1 = cuda_ldpc.decode_cuda(graph, llrs, msg_dtype=msg_dtype)
-    passes = torch.where(ok1, it1 + 1, it1).double()
+    passes = yardstick.ldpc_passes(it1, DEFAULT_MAX_ITERS).double()
     if trap_escape and not bool(ok1.all()):
-        _, ok, it = cuda_ldpc.decode_cuda(graph, llrs, trap_escape=True,
-                                          msg_dtype=msg_dtype)
-        retry = torch.where(ok, it + 1, it).double()
+        _, _, it = cuda_ldpc.decode_cuda(graph, llrs, trap_escape=True,
+                                         msg_dtype=msg_dtype)
+        retry = yardstick.ldpc_passes(it, DEFAULT_MAX_ITERS).double()
         passes = passes + torch.where(ok1, 0.0, retry)
-    return passes
-
-
-def ldpc_bound(graph, passes: torch.Tensor):
-    """The decoder's bound on this run's data: LLRs read once, totals, ok
-    and iters written once; LDPC_OPS_PER_EDGE per edge for every iteration
-    each lane ran (``ldpc_passes``).  The same for bf16 messages: the
-    messages live in shared memory, so the bytes are the LLRs' either way.
-    Returns (ms, basis, mean iterations run)."""
-    B = passes.shape[0]
-    edges = int(graph.row_mask.sum())
-    n_bytes = B * graph.n * 4 * 2 + B * (1 + 4)
-    ms, by = bound(n_bytes, float(passes.sum()) * edges * LDPC_OPS_PER_EDGE)
+    ms, by = yardstick.ldpc_bound(llrs.shape[0], graph.n,
+                                  int(graph.row_mask.sum()),
+                                  float(passes.sum()))
     return ms, by, float(passes.mean())
-
-
-def sc_bound(B: int, half: int, stride: int, G: int):
-    """The window sums' bound: the span of samples the G outputs need, read
-    once, P, R1 and R2 written once; SC_OPS_PER_SAMPLE per sample and
-    4 * half/stride adds per output (the block-grid sums)."""
-    span = stride * (G - 1) + 2 * half
-    n_bytes = B * span * 8 + B * G * (8 + 4 + 4)
-    n_ops = B * (span * SC_OPS_PER_SAMPLE + G * 4 * (half // stride))
-    return bound(n_bytes, n_ops)
-
-
-def dpsk_bound(B: int, L: int, O: int):
-    """The score's bound: the O + 38 L samples of each row read once, the
-    O scores written once; DPSK_OPS_PER_SAMPLE a sample and
-    DPSK_OPS_PER_OFFSET an offset."""
-    span = O + (cuda_dpsk.PAIRS * L)
-    return bound(B * span * 8 + B * O * 4,
-                 B * span * DPSK_OPS_PER_SAMPLE + B * O * DPSK_OPS_PER_OFFSET)
 
 
 def decimate_bound(B: int, T: int):
@@ -581,7 +508,8 @@ def decimate_bound(B: int, T: int):
     complex outputs written once; 2 * 128 fused multiply-adds (2 float32
     operations each) an output."""
     Tb = -(-T // CH.DECIM)
-    return bound(B * T * 4 + B * Tb * 8, B * Tb * 2 * CH.DECIM_TAPS * 2)
+    return yardstick.bound(B * T * 4 + B * Tb * 8,
+                           B * Tb * 2 * CH.DECIM_TAPS * 2)
 
 
 def track_bound(B: int, Cd: int, Np: int, Ci: int):
@@ -594,7 +522,7 @@ def track_bound(B: int, Cd: int, Np: int, Ci: int):
     each sine, cosine, arctangent or hypotenuse counted as one."""
     n_bytes = B * (8 * (Cd + Np) + 8 * (Np + Cd) + 8 * (2 * Np + Cd)
                    + 8 * (Np + Ci) + 8 * (Np + Cd) + 4 * 2 * Cd + 2 * 48)
-    return bound(n_bytes, B * (80 * Np + 20 * Ci + 60 * Cd))
+    return yardstick.bound(n_bytes, B * (80 * Np + 20 * Ci + 60 * Cd))
 
 
 def lts_bound(B: int, P: int, L: int):
@@ -602,22 +530,22 @@ def lts_bound(B: int, P: int, L: int):
     of L: each lane's P + L - 1 samples and the template read once, three
     outputs written; 2 L float32 fused multiply-adds (4 operations a tap)
     a position for the matched filter alone."""
-    return bound(B * (P + L - 1) * 4 + L * 8 + B * 12, B * P * L * 4)
+    return yardstick.bound(B * (P + L - 1) * 4 + L * 8 + B * 12,
+                           B * P * L * 4)
 
 
 #: (kernel, shape, kernel ms, bound ms, basis) of every timed shape.
 SHAPES: list = []
 
 
-#: The name a kernel's device events carry (both LDPC instantiations are
+#: The name a kernel's device events carry: the yardstick's, and the
+#: kernels it does not time (both LDPC instantiations are
 #: ldpc_minsum_kernel<threads, bf16>).
-KERNEL_EVENT = {"ldpc_minsum": "ldpc_minsum_kernel",
-                "ldpc_minsum_bf16": "ldpc_minsum_kernel",
-                "sc_windows": "sc_windows_kernel",
-                "dpsk_score": "dpsk_score_kernel",
-                "chirp_decimate": "chirp_decimate_kernel",
-                "pilot_track": "pilot_track_kernel",
-                "lts_timing": "lts_timing_kernel"}
+KERNEL_EVENT = yardstick.KERNEL_EVENT | {
+    "ldpc_minsum_bf16": "ldpc_minsum_kernel",
+    "chirp_decimate": "chirp_decimate_kernel",
+    "pilot_track": "pilot_track_kernel",
+    "lts_timing": "lts_timing_kernel"}
 
 
 def report_shape(name: str, shape: str, fn, reps: int, bound_ms: float,
@@ -642,8 +570,8 @@ def time_ldpc_shape(label: str, rate: CodeRate, llrs: torch.Tensor,
     graph = ldpc_ops.graph_for(get_code(rate), llrs.device)
     kw = {"trap_escape": trap_escape, "msg_dtype": msg_dtype}
     _, ok, _ = cuda_ldpc.decode_cuda(graph, llrs, **kw)
-    bound_ms, by, passes = ldpc_bound(graph, ldpc_passes(graph, llrs,
-                                                         **kw))
+    bound_ms, by, passes = ldpc_run_bound(graph, llrs, trap_escape,
+                                          msg_dtype)
     trap = ", trap_escape" if trap_escape else ""
     name = "ldpc_minsum_bf16" if msg_dtype == BF16 else "ldpc_minsum"
     ms = report_shape(name, f"{label}{trap}, B={llrs.shape[0]}, "
@@ -706,6 +634,27 @@ def time_pair(kernel, plain, kernel_reps: int,
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def pair_outputs(kernel, plain) -> tuple:
+    """One output of each side of a timed pair, on the same inputs."""
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    return got, want
+
+
+def require_windows_close(label: str, kernel, plain) -> None:
+    """The window kernel's P, R1, R2 within WINDOW_RTOL, WINDOW_ATOL of its
+    plain version's."""
+    got, want = pair_outputs(kernel, plain)
+    errs = [float((x - y).abs().max()) for x, y in zip(got, want)]
+    close = all(bool(torch.isclose(x, y, rtol=WINDOW_RTOL,
+                                   atol=WINDOW_ATOL).all())
+                for x, y in zip(got, want))
+    print(f"window kernel vs plain [{label}]: max abs diff P/R1/R2 "
+          f"{errs!r} (rtol {WINDOW_RTOL}, atol {WINDOW_ATOL})", flush=True)
+    require(close, f"the window kernel differs from the plain version "
+            f"({label})")
+
+
 def time_decoders(graph, llrs: torch.Tensor, kernel_reps: int,
                   plain_reps: int, trap_escape: bool = False,
                   msg_dtype: torch.dtype = torch.float32
@@ -730,27 +679,20 @@ def profile_busy_ms(fn, reps: int, rows: int = 15) -> float:
     if rows:
         print(prof.key_averages().table(sort_by="self_device_time_total",
                                         row_limit=rows), flush=True)
-    return busy_ms(prof) / reps
+    return device_busy_ns(prof) / 1e6 / reps
 
 
-def busy_ms(prof) -> float:
-    """Length of the union of the device activities' intervals, ms, read
-    from the profiler's raw device events (building its per-operator
+def device_busy_ns(prof) -> int:
+    """``yardstick.busy_ns`` over all the device activities' intervals,
+    read from the profiler's raw device events (building its per-operator
     events for a long window costs minutes of host time)."""
-    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
-                   for e in prof.profiler.kineto_results.events()
-                   if e.device_type() == DeviceType.CUDA)
-    busy_ns, cur_start, cur_end = 0, None, None
-    for a, b in spans:
-        if cur_end is None or a > cur_end:
-            if cur_end is not None:
-                busy_ns += cur_end - cur_start
-            cur_start, cur_end = a, b
-        else:
-            cur_end = max(cur_end, b)
-    if cur_end is not None:
-        busy_ns += cur_end - cur_start
-    return busy_ns / 1e6
+    spans = [(e.start_ns(), e.start_ns() + e.duration_ns())
+             for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    if not spans:
+        return 0
+    return yardstick.busy_ns(spans, min(a for a, _ in spans),
+                             max(b for _, b in spans))
 
 
 # ---------------------------------------------------------------------------
@@ -768,7 +710,7 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     mods = {mod for mod, _ in KERNELS.values()}
     with ThreadPoolExecutor(len(mods)) as pool:
-        for job in [pool.submit(mod.load_library) for mod in mods]:
+        for job in [pool.submit(mod.LIBRARY.load) for mod in mods]:
             job.result()
     for name, (mod, _) in KERNELS.items():
         print(f"kernel build {name}: {mod.LIBRARY.build_seconds!r} s "
@@ -777,32 +719,6 @@ def phase_build() -> None:
     for report in sorted(cuda_build.BUILD_DIR.glob("*.ptxas.txt")):
         print(f"ptxas ({report.name}):\n{report.read_text().strip()}",
               flush=True)
-
-
-def phase_kernel_parity(dev: torch.device) -> None:
-    for rate in GOLDEN_NAMES:
-        llrs = torch.from_numpy(golden_llrs(rate)).to(dev)
-        compare_decoders(rate, llrs, f"golden {GOLDEN_NAMES[rate]}")
-    for rate, sigma in WATERFALL:
-        llrs = torch.from_numpy(
-            waterfall_llrs(rate, sigma, WATERFALL_BATCH)).to(dev)
-        compare_decoders(rate, llrs,
-                         f"waterfall {GOLDEN_NAMES[rate]} sigma={sigma}")
-    compare_nonfinite(dev, torch.float32)
-
-
-def compare_nonfinite(dev: torch.device, msg_dtype: torch.dtype) -> None:
-    """The kernel instantiation of ``msg_dtype`` against the plain decoder
-    on ``nonfinite_llrs`` at both waterfall points: decisions equal on
-    every lane and the totals equal, NaN to NaN."""
-    for rate, sigma in WATERFALL:
-        for kind in ("inf", "nan"):
-            llrs = torch.from_numpy(nonfinite_llrs(
-                rate, sigma, WATERFALL_BATCH, kind)).to(dev)
-            label = f"{kind} LLRs, waterfall {GOLDEN_NAMES[rate]} sigma={sigma}"
-            err = compare_decoders(rate, llrs, label, msg_dtype=msg_dtype)
-            require(err == 0.0, f"kernel totals differ from the plain "
-                    f"decoder's on {label}: {err!r}")
 
 
 def phase_tx_golden(dev: torch.device) -> None:
@@ -828,9 +744,9 @@ def phase_tx_golden(dev: torch.device) -> None:
 
 
 def phase_main_path(dev: torch.device):
-    """The main path at BATCH frames; returns (kernel launches in the run,
-    deinterleaved LLRs of its noisy frames, max abs difference of the
-    kernel's and the plain decoder's total LLRs on them)."""
+    """The main path at BATCH frames, and the kernel lane-exact with the
+    plain decoder on its LLRs; returns (kernel launches in the run,
+    deinterleaved LLRs of its noisy frames)."""
     code = get_code(RATE)
     g_info = torch.Generator(device=dev).manual_seed(0)
     g_noise = torch.Generator(device=dev).manual_seed(1)
@@ -863,61 +779,19 @@ def phase_main_path(dev: torch.device):
 
     pipe = P.pipeline_for(CFG, MOD, RATE, 1, dev)
     deint = pipe.deinterleaved_llrs(rx_in)
-    err = compare_decoders(RATE, deint, "main path 17 dB LLRs")
+    compare_decoders(RATE, deint, "main path 17 dB LLRs")
     _, ok_k, _ = cuda_ldpc.decode_cuda(pipe.code, deint)
     require(bool((ok_k == ok).all()), "rx_frame ok flags differ from a "
             "second decode of its own LLRs")
-    return launches, deint, err
-
-
-def stage_breakdown(dev: torch.device, info: torch.Tensor,
-                    g_noise: torch.Generator) -> dict:
-    """Stream time of each stage of the main path, ms per step."""
-    pipe = P.pipeline_for(CFG, MOD, RATE, 1, dev)
-    names = ["tx", "noise", "demod", "decode"]
-    totals = dict.fromkeys(names, 0.0)
-    for _ in range(TIMED_STEPS):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-        ev[0].record()
-        tx = pipe.tx(info)
-        ev[1].record()
-        rx_in = W.add_noise_active(tx, SNR_DB, g_noise)
-        ev[2].record()
-        deint = pipe.deinterleaved_llrs(rx_in)
-        ev[3].record()
-        ldpc_ops.decode_totals(pipe.code, deint)
-        ev[4].record()
-        torch.cuda.synchronize()
-        for i, name in enumerate(names):
-            totals[name] += ev[i].elapsed_time(ev[i + 1])
-    return {name: t / TIMED_STEPS for name, t in totals.items()}
+    return launches, deint
 
 
 def phase_timing(dev: torch.device, card: str, deint: torch.Tensor):
+    """The LDPC kernel against the plain decoder on the main path's 17 dB
+    LLRs and on the sigma 0.62 waterfall batch (calls, CUDA events), and
+    its device time beside its bound at both; returns the main path's
+    (kernel ms, plain ms, bound ms, basis)."""
     code = get_code(RATE)
-    g_info = torch.Generator(device=dev).manual_seed(2)
-    g_noise = torch.Generator(device=dev).manual_seed(3)
-    info = torch.randint(0, 2, (BATCH, code.k), generator=g_info, device=dev,
-                         dtype=torch.uint8)
-
-    def step():
-        tx = P.tx_frame(CFG, MOD, RATE, info)
-        rx_in = W.add_noise_active(tx, SNR_DB, g_noise)
-        return P.rx_frame(CFG, MOD, RATE, rx_in)
-
-    ms = time_ms(step, TIMED_STEPS)
-    pps = BATCH / (ms / 1000.0)
-    print(f"main path: {pps!r} pipelines/s ({ms!r} ms per step of {BATCH} "
-          f"frames, {TIMED_STEPS} steps, fresh noise each step) on {card}",
-          flush=True)
-    print(f"main path stages: {stage_breakdown(dev, info, g_noise)} "
-          f"(ms per step of {BATCH} frames, CUDA events) on {card}",
-          flush=True)
-    busy = profile_busy_ms(step, TIMED_STEPS)
-    print(f"main path device busy {busy!r} ms per step (union of kernel "
-          f"intervals, profiled) of {ms!r} ms unprofiled: idle share "
-          f"{1.0 - busy / ms!r} on {card}", flush=True)
-
     graph = ldpc_ops.graph_for(code, dev)
     k_ms, p_ms = time_decoders(graph, deint, kernel_reps=20, plain_reps=5)
     print(f"decode at 17 dB LLRs B={deint.shape[0]}: kernel {k_ms!r} ms, "
@@ -961,29 +835,6 @@ def window_shapes(T: int) -> dict:
             1: (1, CP, T - COX_CFG.fft_size - CP + 1)}
 
 
-def compare_windows(a: torch.Tensor, stride: int, offset: int, G: int,
-                    label: str, half: int = HALF) -> float:
-    """Kernel vs plain window sums on the same analytic signal; returns the
-    max abs error (raises unless within rtol 2e-4, atol 2e-3)."""
-    got = cuda_sc.sc_windows_cuda(a, half, stride, offset, G)
-    want = sc_windows_plain(a, half, stride, offset, G)
-    torch.cuda.synchronize()
-    errs, rels = [], []
-    for x, y, name in zip(got, want, ("P", "R1", "R2")):
-        d = (x - y).abs()
-        big = y.abs() >= 1e-3 * float(y.abs().max())
-        errs.append(float(d.max()))
-        rels.append(float((d[big] / y.abs()[big]).max()))
-        require(bool(torch.isclose(x, y, rtol=WINDOW_RTOL,
-                                   atol=WINDOW_ATOL).all()),
-                f"window kernel {name} disagrees with plain on {label}")
-    print(f"window kernel vs plain [{label}] B={a.shape[0]} T={a.shape[1]} "
-          f"half={half} stride={stride} G={G}: max_abs_err P/R1/R2={errs!r} "
-          f"max_rel_err={rels!r} (rtol {WINDOW_RTOL}, atol {WINDOW_ATOL}); "
-          f"launch {plan_line(a, half, stride, offset, G)}", flush=True)
-    return max(errs)
-
-
 def plan_line(a: torch.Tensor, half: int, stride: int, offset: int,
               G: int) -> str:
     """The window kernel's launch at these sizes, as a line."""
@@ -991,131 +842,6 @@ def plan_line(a: torch.Tensor, half: int, stride: int, offset: int,
                                G, a.device)
     return ("{tile} outputs an item, {items} items on {blocks} blocks, "
             "{stages} stages, {shared_bytes} shared B a block".format(**plan))
-
-
-# One non-finite sample (lane, sample) in the buffers of
-# tests/test_torch_cuda.py::test_window_kernel_at_a_nonfinite_sample.
-NONFINITE_SAMPLES = {"cox": (300, 3828), "engine": (0, 100000)}
-NONFINITE_VALUES = {"inf": complex(float("inf"), 0.0),
-                    "nan": complex(float("nan"), 0.0)}
-
-
-def compare_nonfinite_windows(a: torch.Tensor, half: int, stride: int,
-                              offset: int, G: int, label: str) -> None:
-    """Kernel vs plain window sums on a signal holding a non-finite sample:
-    each real part of P, R1 and R2 NaN, +inf and -inf at exactly the plain
-    version's outputs, within rtol 2e-4, atol 2e-3 elsewhere."""
-    got = cuda_sc.sc_windows_cuda(a, half, stride, offset, G)
-    want = sc_windows_plain(a, half, stride, offset, G)
-    torch.cuda.synchronize()
-    counts, errs = [], []
-    for x, y, name in zip(got, want, ("P", "R1", "R2")):
-        for xp, yp, part in (((x.real, y.real, name + ".re"),
-                              (x.imag, y.imag, name + ".im"))
-                             if y.is_complex() else ((x, y, name),)):
-            bad = ~torch.isfinite(yp)
-            require(bool(bad.any()), f"{label}: the sample reached no {part}")
-            for test in (torch.isnan, torch.isposinf, torch.isneginf):
-                require(torch.equal(test(xp), test(yp)),
-                        f"window kernel {part} differs from plain in "
-                        f"{test.__name__} on {label}")
-            require(bool(torch.isclose(xp[~bad], yp[~bad], rtol=WINDOW_RTOL,
-                                       atol=WINDOW_ATOL).all()),
-                    f"window kernel {part} disagrees with plain on {label}")
-            counts.append(int(bad.sum()))
-            errs.append(float((xp[~bad] - yp[~bad]).abs().max()))
-    print(f"window kernel vs plain [{label}] half={half} stride={stride} "
-          f"G={G}: non-finite outputs P.re/P.im/R1/R2={counts} (same places "
-          f"and kinds), max_abs_err elsewhere={errs!r}", flush=True)
-
-
-def phase_window_nonfinite(dev: torch.device, rx: torch.Tensor) -> None:
-    """The window kernel against its plain version at one +inf or NaN
-    sample, in the Cox buffer's analytic signal (B = 512, T = 18,856) and
-    in an engine-shaped search view of noise (B = 1, T = 262,144), at
-    strides 1 and 8 and half 256 and 512; then B = 1 rows long enough that
-    every block walks several work items through its ring."""
-    g = torch.Generator(device=dev).manual_seed(23)
-    view = torch.randn((1, ModemEngine.ACQ_VIEW_CAP), generator=g,
-                       device=dev)
-    for name, buf in (("cox", rx), ("engine", view)):
-        lane, t = NONFINITE_SAMPLES[name]
-        for kind, value in NONFINITE_VALUES.items():
-            a = SC.analytic_signal(buf)
-            a[lane, t] = value
-            T = a.shape[1]
-            for half, offset in ((256, CP), (512, NVIS_CFG.cyclic_prefix)):
-                for stride in (1, 8):
-                    G = (T - 2 * half - offset) // stride + 1
-                    compare_nonfinite_windows(
-                        a, half, stride, offset, G,
-                        f"{name} B={a.shape[0]} T={T}, {kind} at lane "
-                        f"{lane} sample {t}")
-    T = 4_000_000
-    a = SC.analytic_signal(torch.randn((1, T), generator=g, device=dev))
-    for stride in (8, 1):
-        G = (T - 2 * HALF - CP) // stride + 1
-        plan = cuda_sc.launch_plan(1, T, HALF, stride, CP, G, dev)
-        require(plan["items"] >= 2 * plan["blocks"],
-                f"a B = 1 row of {T} gives {plan} (blocks walk one item)")
-        compare_windows(a, stride, CP, G, "B = 1 83 s row, many items a "
-                        "block")
-
-
-def phase_window_parity(dev: torch.device, rx: torch.Tensor) -> float:
-    """Returns the max abs error on the Cox buffers at stride 8 (the shape
-    detect_preamble gives the kernel)."""
-    g = torch.Generator(device=dev).manual_seed(21)
-    noise = torch.randn((64, COX_T), generator=g, device=dev)
-    cox = SC.analytic_signal(rx)
-    err8 = 0.0
-    for name, a in (("random", SC.analytic_signal(noise)), ("Cox 17 dB", cox)):
-        for stride, (st, off, G) in window_shapes(COX_T).items():
-            err = compare_windows(a, st, off, G, name)
-            if name != "random" and stride == 8:
-                err8 = err
-    compare_windows(SC.analytic_signal(noise[:, :9001]), 8, CP,
-                    SC.search_grid_size(COX_CFG, 9001), "random, ragged T")
-
-    # Block stability: one 600,000-sample buffer of positive samples
-    # against float64 sums (tests/test_long_buffer_precision.py:20-36).
-    T = 600_000
-    x = (np.random.default_rng(1).standard_normal(T).astype(np.float32)
-         + 0.5) ** 2
-    x64 = x.astype(np.float64)
-    ones = np.ones(HALF)
-    e = np.convolve(x64 * x64, ones, mode="valid")
-    refs = (np.convolve(x64[:-HALF] * x64[HALF:], ones, mode="valid"),
-            e[:T - 2 * HALF + 1], e[HALF:])
-    a = torch.from_numpy(x).to(dev).to(torch.complex64)[None]
-    for label, fn in (("kernel", cuda_sc.sc_windows_cuda),
-                      ("plain", sc_windows_plain)):
-        outs = fn(a, HALF, 1, 0, T - 2 * HALF + 1)
-        rel = [float(np.max(np.abs(o[0].real.double().cpu().numpy() - r)
-                            / r)) for o, r in zip(outs, refs)]
-        print(f"long buffer T={T} stride 1 w=2*{HALF} [{label}]: relative "
-              f"error vs float64 P/R1/R2={rel!r} (limit 1e-4)", flush=True)
-        require(max(rel) < 1e-4, f"{label} window sums drift on a long buffer")
-    return err8
-
-
-def phase_detection_parity(dev: torch.device, rx: torch.Tensor) -> None:
-    """detect_preamble through the kernel against detect_preamble through
-    the plain window sums on the same buffers."""
-    det_k = SC.detect_preamble(COX_CFG, rx)
-    with mock.patch.object(SC, "sc_windows", sc_windows_plain):
-        det_p = SC.detect_preamble(COX_CFG, rx)
-    torch.cuda.synchronize()
-    found_eq = bool(torch.equal(det_k["found"], det_p["found"]))
-    lts_eq = bool(torch.equal(det_k["lts_start"], det_p["lts_start"]))
-    sync_diff = int((det_k["sync_off"] != det_p["sync_off"]).sum())
-    cfo_diff = float((det_k["cfo_hz"] - det_p["cfo_hz"]).abs().max())
-    print(f"detection kernel vs plain B={rx.shape[0]} {SNR_DB} dB: "
-          f"found_equal={found_eq} lts_start_equal={lts_eq} "
-          f"sync_off_lanes_differing={sync_diff} max_cfo_diff_hz={cfo_diff!r} "
-          f"found_rate={float(det_k['found'].float().mean())!r}", flush=True)
-    require(found_eq and lts_eq,
-            "detection through the kernel differs from the plain version")
 
 
 def check_cox(outs: list, info: torch.Tensor, label: str) -> None:
@@ -1213,10 +939,11 @@ def cox_stages(rx_all: list) -> dict:
 
 def phase_cox_timing(dev: torch.device, card: str):
     """Cox frames/s (noise untimed, as the bench), stages, idle share, the
-    window kernel against its plain version and its bound at strides 8 and
-    1, and the LDPC kernel on a Cox buffer's LLRs (against the plain
-    decoder, both timed); returns (kernel ms, plain ms, bound ms, basis) of
-    the window kernel at stride 8."""
+    window kernel against its plain version (within WINDOW_RTOL,
+    WINDOW_ATOL) and its bound at strides 8 and 1, and the LDPC kernel on
+    a Cox buffer's LLRs (against the plain decoder, both timed); returns
+    (kernel ms, plain ms, bound ms, basis) of the window kernel at stride
+    8."""
     info, tx = cox_tx(dev, 12)
     g = torch.Generator(device=dev).manual_seed(14)
     decode_cox(tx)  # warm-up: per-device tables
@@ -1245,16 +972,18 @@ def phase_cox_timing(dev: torch.device, card: str):
     times = {}
     for stride, (st, off, G) in window_shapes(COX_T).items():
         def kernel():
-            cuda_sc.sc_windows_cuda(a, HALF, st, off, G)
+            return cuda_sc.sc_windows_cuda(a, HALF, st, off, G)
 
         def plain():
-            sc_windows_plain(a, HALF, st, off, G)
+            return sc_windows_plain(a, HALF, st, off, G)
 
+        require_windows_close(f"Cox buffer, stride {stride}", kernel, plain)
         times[stride] = time_pair(kernel, plain, 50, 10)
         print(f"window sums B={COX_BATCH} T={COX_T} stride {stride} G={G}: "
               f"kernel {times[stride][0]!r} ms, plain {times[stride][1]!r} ms "
-              f"(calls, CUDA events) on {card}", flush=True)
-        bound_ms, by = sc_bound(COX_BATCH, HALF, st, G)
+              f"(calls, CUDA events) on {card}; launch "
+              f"{plan_line(a, HALF, st, off, G)}", flush=True)
+        bound_ms, by = yardstick.sc_bound(COX_BATCH, HALF, st, G)
         report_shape("sc_windows", f"Cox buffer, B={COX_BATCH}, T={COX_T}, "
                      f"stride {stride}, G={G}", kernel,
                      50 if stride == 8 else 10, bound_ms, by, card)
@@ -1267,15 +996,6 @@ def phase_cox_timing(dev: torch.device, card: str):
                                                     det))
     ldpc_at_new_shape("R1/2 17 dB Cox buffer", RATE, llrs.contiguous(), card)
     return sc8
-
-
-#: The pilot-tracking kernel against the scan's PyTorch step
-#: (tests/test_torch_cuda.py): LLRs lie in [-10, 10].  The kernel sums over
-#: carriers in another order, so a lane whose tracking meets a near-tie
-#: (the timing fix's |offset| > 0.1) can take the other branch and end
-#: apart; at most TRACK_APART of the lanes may.
-TRACK_LLR_ATOL = 2e-3
-TRACK_APART = 2e-3
 
 
 def scan_args(rx: torch.Tensor) -> tuple:
@@ -1302,14 +1022,12 @@ def plain_track(state, fd: torch.Tensor):
 
 
 def phase_pilot_track(card: str, rx: torch.Tensor) -> tuple:
-    """The pilot-tracking kernel at the Cox benchmark cell's B = 2,048 (the
-    buffers' rows repeated) and the engine's B = 1: the whole scan through
-    the kernel against the scan through the PyTorch step on the same card
-    tensors (LLRs within TRACK_LLR_ATOL and signs equal where the plain LLR
-    passes it, on all but at most TRACK_APART of the lanes; one launch a
-    symbol), and one symbol's launch timed against the step it replaces
-    and its bound.  Returns the cell's (max LLR difference on the lanes
-    within the tolerance, call ms, plain ms, bound ms, basis)."""
+    """One symbol's launch of the pilot-tracking kernel at the Cox
+    benchmark cell's B = 2,048 (the buffers' rows repeated) and the
+    engine's B = 1, on the scan's own first symbol, against the PyTorch
+    step it replaces (LLRs within TRACK_LLR_ATOL, signs equal where the
+    plain LLR passes it), and timed beside it and its bound.  Returns the
+    cell's (call ms, plain ms, bound ms, basis)."""
     cell = rx.repeat(-(-2048 // rx.shape[0]), 1)[:2048].contiguous()
     rows = []
     for label, x in (("Cox cell", cell), ("engine", cell[:1].clone())):
@@ -1318,33 +1036,21 @@ def phase_pilot_track(card: str, rx: torch.Tensor) -> tuple:
         a.apply_defaults()
         config, mod, state, data = (a.arguments[k] for k in
                                     ("config", "mod", "state", "data"))
-        S = data.shape[1]
-        before = cuda_track.launches
-        _, llrs = D._scan_eager(*args, **kwargs)
-        launched = cuda_track.launches - before
-        with mock.patch.object(D, "_fused_tracking", lambda *_a: False):
-            _, plain = D._scan_eager(*args, **kwargs)
-        torch.cuda.synchronize()
-        lane = (llrs - plain).abs().amax(-1)
-        apart = lane > TRACK_LLR_ATOL
-        err = float(lane[~apart].max())
-        sure = (plain.abs() > TRACK_LLR_ATOL) & ~apart[:, None]
-        signs = bool(torch.equal(llrs[sure] > 0, plain[sure] > 0))
-        print(f"pilot-tracking kernel vs the PyTorch step [{label}] "
-              f"B={data.shape[0]} S={S}: max LLR difference {err!r} (limit "
-              f"{TRACK_LLR_ATOL}) on the lanes within it, signs equal "
-              f"{signs}; lanes apart {int(apart.sum())} (at most "
-              f"{TRACK_APART:.1%}, largest difference "
-              f"{float(lane.max())!r}); launches {launched}", flush=True)
-        require(launched == S and signs
-                and float(apart.float().mean()) <= TRACK_APART,
-                f"the pilot-tracking kernel differs from the PyTorch step "
-                f"({label})")
-
         ic, taper = D._scan_windows(mod, a.arguments["front"])
         fd, st = D.to_baseband_fd(config, state, data[:, 0],
                                   a.arguments["t0_base"], image_cancel=ic,
                                   taper=taper, bins_w=a.arguments["bins_w"])
+        (_, llrs), (_, want) = pair_outputs(
+            lambda: cuda_track.track_dqpsk_cuda(config, st, fd),
+            lambda: plain_track(st, fd))
+        err = float((llrs - want).abs().max())
+        sure = want.abs() > TRACK_LLR_ATOL
+        signs = bool(torch.equal(llrs[sure] > 0, want[sure] > 0))
+        print(f"pilot-tracking kernel vs the PyTorch step [{label}]: max LLR "
+              f"difference {err!r} (limit {TRACK_LLR_ATOL}), signs equal "
+              f"{signs}", flush=True)
+        require(err <= TRACK_LLR_ATOL and signs, f"the pilot-tracking kernel "
+                f"differs from the PyTorch step ({label})")
         k_ms, p_ms = time_pair(
             lambda: cuda_track.track_dqpsk_cuda(config, st, fd),
             lambda: plain_track(st, fd), 50, 10)
@@ -1360,13 +1066,8 @@ def phase_pilot_track(card: str, rx: torch.Tensor) -> tuple:
                      f"Np={Np} Ci={Ci}",
                      lambda: cuda_track.track_dqpsk_cuda(config, st, fd), 50,
                      bound_ms, by, card)
-        rows.append((err, k_ms, p_ms, bound_ms, by))
+        rows.append((k_ms, p_ms, bound_ms, by))
     return rows[0]
-
-
-#: lts_corr through the kernel against the plain FFT matched filter (a
-#: normalised correlation in [0, 1]; the two sum in other orders).
-LTS_CORR_ATOL = 1e-5
 
 
 def lts_view(rx: torch.Tensor) -> torch.Tensor:
@@ -1379,43 +1080,34 @@ def lts_view(rx: torch.Tensor) -> torch.Tensor:
 
 
 def phase_lts_timing(card: str, rx: torch.Tensor) -> tuple:
-    """The LTS timing kernel at the Cox benchmark cell's B = 2,048 x
-    T = 18,856 (the buffers' rows repeated) and the engine's B = 1 view of
-    262,144 samples with the deep gates: detect_preamble through the kernel
-    against detect_preamble through the plain FFT matched filter on the
-    same card tensors (every output equal but lts_corr, within
-    LTS_CORR_ATOL; one launch a gate set), and one gate set's timing
-    (kernel and plain, the same sync_off) against the kernel's bound.
-    Returns the cell's (max lts_corr difference, call ms, plain ms, bound
-    ms, basis)."""
+    """One gate set of the LTS timing kernel at the Cox benchmark cell's
+    B = 2,048 x T = 18,856 (the buffers' rows repeated) and the engine's
+    B = 1 view of 262,144 samples (with the deep gates), at the sync_offs
+    detect_preamble finds there, against the plain FFT matched filter at
+    the same offsets (lts_start and data_start equal, lts_corr within
+    LTS_CORR_ATOL and NaN alike), and timed beside it and its bound.
+    Returns the cell's (call ms, plain ms, bound ms, basis)."""
     cell = rx.repeat(-(-2048 // rx.shape[0]), 1)[:2048].contiguous()
     plen = COX_CFG.fft_size + COX_CFG.cyclic_prefix
     rows = []
     for label, x, deep in (("Cox cell", cell, False),
                            ("engine view", lts_view(rx), True)):
-        before = cuda_lts.launches
         det = SC.detect_preamble(COX_CFG, x, with_deep=deep)
-        launched = cuda_lts.launches - before
-        with mock.patch.object(SC, "lts_timing", lambda c, s, X, so:
-                               SC.lts_timing_plain(c, s, X, so)):
-            ref = SC.detect_preamble(COX_CFG, x, with_deep=deep)
-        torch.cuda.synchronize()
-        ints = all(bool(torch.equal(det[k], ref[k])) for k in ref
-                   if ref[k].dtype in (torch.bool, torch.int32))
-        err = max(float((det[k] - ref[k]).abs().max()) for k in ref
-                  if k.endswith("lts_corr"))
-        print(f"LTS timing kernel vs plain [{label}] B={x.shape[0]} "
-              f"T={x.shape[1]}: integer outputs equal {ints}, max lts_corr "
-              f"difference {err!r} (limit {LTS_CORR_ATOL}), launches "
-              f"{launched}, found {int(det['found'].sum())}", flush=True)
-        require(launched == (2 if deep else 1) and ints
-                and err <= LTS_CORR_ATOL,
-                f"the LTS timing kernel differs from the plain path "
-                f"({label})")
-
         B, T = x.shape
         sync_off = det["sync_off"].to(torch.int64)
         X = torch.fft.fft(x.to(torch.complex64), n=SC._n_fft(T), dim=-1)
+        got, (want,) = pair_outputs(
+            lambda: cuda_lts.lts_timing_cuda(COX_CFG, x, sync_off, X[:, 0]),
+            lambda: SC.lts_timing_plain(COX_CFG, x, X, [sync_off]))
+        ints = all(bool(torch.equal(a, b)) for a, b in zip(got[:2], want[:2]))
+        nans = bool(torch.equal(torch.isnan(got[2]), torch.isnan(want[2])))
+        keep = ~torch.isnan(want[2])
+        err = float((got[2][keep] - want[2][keep]).abs().max())
+        print(f"LTS timing kernel vs plain [{label}]: lts_start and "
+              f"data_start equal {ints}, NaNs alike {nans}, max lts_corr "
+              f"difference {err!r} (limit {LTS_CORR_ATOL})", flush=True)
+        require(ints and nans and err <= LTS_CORR_ATOL, f"the LTS timing "
+                f"kernel differs from the plain path ({label})")
         k_ms, p_ms = time_pair(
             lambda: cuda_lts.lts_timing_cuda(COX_CFG, x, sync_off, X[:, 0]),
             lambda: SC.lts_timing_plain(COX_CFG, x, X, [sync_off]), 20, 5)
@@ -1432,7 +1124,7 @@ def phase_lts_timing(card: str, rx: torch.Tensor) -> tuple:
                      lambda: cuda_lts.lts_timing_cuda(COX_CFG, x, sync_off,
                                                       X[:, 0]),
                      20, bound_ms, by, card)
-        rows.append((err, k_ms, p_ms, bound_ms, by))
+        rows.append((k_ms, p_ms, bound_ms, by))
     return rows[0]
 
 
@@ -1461,23 +1153,6 @@ def chirp_llrs(rx: torch.Tensor) -> torch.Tensor:
     n_sym = MCP.num_symbols_for_bits(MC, get_code(CHIRP_RATE).n)
     llrs = MCP.demodulate_detected(MC, rx, det, n_sym)
     return llrs[:, :get_code(CHIRP_RATE).n].contiguous()
-
-
-def phase_chirp_detection(rx: torch.Tensor) -> None:
-    """detect_dual_chirp on the card against the CPU path, same lanes."""
-    det = CH.detect_dual_chirp(CC, rx[:CPU_LANES], MC.chirp_threshold)
-    ref = CH.detect_dual_chirp(CC, rx[:CPU_LANES].cpu(), MC.chirp_threshold)
-    torch.cuda.synchronize()
-    equal = {k: bool(torch.equal(det[k].cpu(), ref[k])) for k in DET_KEYS}
-    cfo_diff = float((det["cfo_hz"].cpu() - ref["cfo_hz"]).abs().max())
-    corr_diff = max(float((det[k].cpu() - ref[k]).abs().max())
-                    for k in ("up_correlation", "down_correlation"))
-    print(f"chirp detection card vs CPU B={CPU_LANES} T={rx.shape[1]} "
-          f"{CHIRP_SNR_DB} dB: equal={equal} max_cfo_diff_hz={cfo_diff!r} "
-          f"max_corr_diff={corr_diff!r} success_rate="
-          f"{float(det['success'].float().mean())!r}", flush=True)
-    require(all(equal.values()) and cfo_diff <= 1e-3,
-            "chirp detection on the card differs from the CPU path")
 
 
 def check_chirp(outs: list, info: torch.Tensor, label: str) -> float:
@@ -1537,41 +1212,25 @@ def phase_chirp_path(dev: torch.device) -> tuple:
     return rx_all[0], launches["chirp_decimate"]
 
 
-def compare_decimation(x: torch.Tensor, label: str, bf16: bool = False
-                       ) -> float:
-    """The decimation kernel (one launch through ``_decimate``) against the
-    plain conv path on the same card tensor; returns the max abs difference
-    over the plain path's peak (within 1e-6; 1e-5 in the bf16 mode)."""
-    with CH.bf16_mode(bf16):
-        before = cuda_decimate.launches
-        got = CH._decimate(CC, x)
-        launched = cuda_decimate.launches - before
-        want = CH._decimate_plain(CC, x)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max()) / float(want.abs().max())
-    limit = 1e-5 if bf16 else 1e-6
-    mode = ", bf16" if bf16 else ""
-    print(f"chirp decimation kernel vs plain [{label}{mode}] B={x.shape[0]} "
-          f"T={x.shape[1]}: max abs diff / peak {err!r} "
-          f"(limit {limit}), launches {launched}", flush=True)
-    require(launched == 1 and err <= limit,
-            f"the decimation kernel differs from the plain path ({label})")
-    return err
-
-
 def phase_chirp_decimation(card: str, rx: torch.Tensor) -> tuple:
-    """The decimation kernel against the plain conv path, and timed beside
-    it and its bound, at the acquired benchmark cell's B = 2,048 x
-    T = 83,808 (the chirp buffer's rows repeated) and at the engine's B = 1
-    search view of ACQ_VIEW_CAP = 262,144 samples; the bf16 mode at the
-    cell.  Returns the cell's (max error, call ms, plain ms, bound ms,
-    basis)."""
+    """The decimation kernel against the plain conv path (within
+    DECIMATE_PEAK_RTOL of the peak), and timed beside it and its bound,
+    at the acquired benchmark cell's B = 2,048 x T = 83,808 (the
+    chirp buffer's rows repeated) and at the engine's B = 1 search view of
+    ACQ_VIEW_CAP = 262,144 samples.  Returns the cell's (call ms, plain ms,
+    bound ms, basis)."""
     cell = rx.repeat(-(-2048 // rx.shape[0]), 1)[:2048].contiguous()
     view = cell[:4].reshape(1, -1)[:, :262144].contiguous()
     rows = []
     for label, x in (("acquired cell", cell), ("engine view", view)):
-        err = compare_decimation(x, label)
         B, T = x.shape
+        got, want = pair_outputs(lambda: CH._decimate(CC, x),
+                                 lambda: CH._decimate_plain(CC, x))
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        print(f"chirp decimation kernel vs plain [{label}]: max abs diff / "
+              f"peak {err!r} (limit {DECIMATE_PEAK_RTOL})", flush=True)
+        require(err <= DECIMATE_PEAK_RTOL, f"the decimation kernel differs "
+                f"from the plain path ({label})")
         k_ms, p_ms = time_pair(lambda: CH._decimate(CC, x),
                                lambda: CH._decimate_plain(CC, x), 20, 5)
         plan = cuda_decimate.card_plan(B, T, x.device)
@@ -1582,8 +1241,7 @@ def phase_chirp_decimation(card: str, rx: torch.Tensor) -> tuple:
         bound_ms, by = decimate_bound(B, T)
         report_shape("chirp_decimate", f"{label}, B={B}, T={T}",
                      lambda: CH._decimate(CC, x), 20, bound_ms, by, card)
-        rows.append((err, k_ms, p_ms, bound_ms, by))
-    compare_decimation(cell, "acquired cell", bf16=True)
+        rows.append((k_ms, p_ms, bound_ms, by))
     return rows[0]
 
 
@@ -2016,28 +1674,26 @@ def phase_nvis(dev: torch.device, card: str) -> None:
 
 
 def phase_windows_half512(rx: torch.Tensor, card: str) -> None:
-    """The window kernel at the NVIS plan's half = 512 against its plain
-    version (strides 8 and 1), and at stride 8 (the detection grid) timed
-    beside its bound."""
+    """The window kernel at the NVIS plan's half = 512 and stride 8 (the
+    detection grid) against its plain version, and timed beside it and its
+    bound."""
     half, cp = NVIS_CFG.fft_size // 2, NVIS_CFG.cyclic_prefix
     a = SC.analytic_signal(rx)
     B, T = a.shape
     G = SC.search_grid_size(NVIS_CFG, T)
-    compare_windows(a, 8, cp, G, "NVIS buffer", half=half)
-    compare_windows(a, 1, cp, T - NVIS_CFG.fft_size - cp + 1,
-                    "NVIS buffer", half=half)
 
     def kernel():
-        cuda_sc.sc_windows_cuda(a, half, 8, cp, G)
+        return cuda_sc.sc_windows_cuda(a, half, 8, cp, G)
 
     def plain():
-        sc_windows_plain(a, half, 8, cp, G)
+        return sc_windows_plain(a, half, 8, cp, G)
 
+    require_windows_close(f"NVIS buffer, half {half}", kernel, plain)
     k_ms, p_ms = time_pair(kernel, plain, 50, 10)
     print(f"window sums NVIS B={B} T={T} half={half} stride 8 G={G}: kernel "
-          f"{k_ms!r} ms, plain {p_ms!r} ms (calls, CUDA events) on {card}",
-          flush=True)
-    bound_ms, by = sc_bound(B, half, 8, G)
+          f"{k_ms!r} ms, plain {p_ms!r} ms (calls, CUDA events) on {card}; "
+          f"launch {plan_line(a, half, 8, cp, G)}", flush=True)
+    bound_ms, by = yardstick.sc_bound(B, half, 8, G)
     report_shape("sc_windows", f"NVIS buffer, B={B}, T={T}, half={half}, "
                  f"stride 8, G={G}", kernel, 50, bound_ms, by, card)
 
@@ -2116,9 +1772,6 @@ def dpsk_run(cfg):
     return run
 
 
-DPSK_SCORE_ATOL = 2e-6   # tests/test_torch_cuda.py: scores lie in [0, 1]
-
-
 def score_inputs(cfg, rx: torch.Tensor, **kw) -> tuple:
     """(corr, L, n_sym, O): what find_preamble hands dpsk_score for rx
     (recorded from a search through the plain score)."""
@@ -2140,29 +1793,6 @@ def plain_score(run):
         with mock.patch.object(DP, "dpsk_score", DS.dpsk_score_plain):
             return run(*args, **kw)
     return wrapped
-
-
-def compare_dpsk_scores(corr: torch.Tensor, L: int, n_sym: int, O: int,
-                        label: str) -> float:
-    """The score kernel against the plain version on one correlation:
-    NaN, +inf and zeros exactly where the plain version has them, within
-    DPSK_SCORE_ATOL elsewhere; returns the max abs difference."""
-    args = (corr, L, n_sym, O, DP.EXPECTED_SIGNS, DP.MIN_SYMBOL_ENERGY)
-    got = cuda_dpsk.dpsk_score_cuda(*args)
-    want = DS.dpsk_score_plain(*args)
-    torch.cuda.synchronize()
-    same = {name: bool(torch.equal(test(got), test(want))) for name, test in
-            (("nan", torch.isnan), ("posinf", torch.isposinf),
-             ("zero", lambda x: x == 0))}
-    fin = torch.isfinite(want)
-    err = float((got[fin] - want[fin]).abs().max())
-    print(f"dpsk_score kernel vs plain [{label}] B={corr.shape[0]} L={L} "
-          f"O={O}: max_abs_err={err!r} (tolerance {DPSK_SCORE_ATOL!r}), same "
-          f"places {same}, plain NaNs {int(torch.isnan(want).sum())}, zeros "
-          f"{int((want == 0).sum())}", flush=True)
-    require(all(same.values()) and err <= DPSK_SCORE_ATOL,
-            f"dpsk_score kernel disagrees with the plain version on {label}")
-    return err
 
 
 def same_decisions(label: str, cfg, rx: torch.Tensor, **kw) -> None:
@@ -2196,12 +1826,25 @@ def engine_dpsk_view(cfg, row: torch.Tensor):
 
 
 def time_dpsk_shape(label: str, inputs: tuple, card: str) -> tuple:
-    """The score kernel's call and the plain version's (CUDA events, in
-    turns), and its device time against its bound; returns (call ms,
-    plain ms, bound ms, basis)."""
+    """The score kernel against the plain version (NaN, +inf and zeros
+    alike, within DPSK_SCORE_ATOL elsewhere), its call and the plain
+    version's (CUDA events, in turns), and its device time against its
+    bound; returns (call ms, plain ms, bound ms, basis)."""
     corr, L, n_sym, O = inputs
     args = (corr, L, n_sym, O, DP.EXPECTED_SIGNS, DP.MIN_SYMBOL_ENERGY)
     B = corr.shape[0]
+    got, want = pair_outputs(lambda: cuda_dpsk.dpsk_score_cuda(*args),
+                             lambda: DS.dpsk_score_plain(*args))
+    same = all(bool(torch.equal(test(got), test(want))) for test in
+               (torch.isnan, torch.isposinf, lambda x: x == 0))
+    fin = torch.isfinite(want)
+    err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) \
+        else 0.0
+    print(f"dpsk_score kernel vs plain [{label}]: NaN, +inf and zeros alike "
+          f"{same}, max abs diff {err!r} (limit {DPSK_SCORE_ATOL})",
+          flush=True)
+    require(same and err <= DPSK_SCORE_ATOL, f"the score kernel differs "
+            f"from the plain version ({label})")
     k_ms, p_ms = time_pair(lambda: cuda_dpsk.dpsk_score_cuda(*args),
                            lambda: DS.dpsk_score_plain(*args), 20, 3)
     plan = cuda_dpsk.launch_plan(B, corr.shape[1], L, O, corr.device)
@@ -2214,7 +1857,7 @@ def time_dpsk_shape(label: str, inputs: tuple, card: str) -> tuple:
           f"plain {p_ms!r} ms (calls, CUDA events; the plain call ran "
           f"{plain_ops} device operations under torch.profiler, the kernel "
           f"1) on {card}; launch plan {plan}", flush=True)
-    bound_ms, by = dpsk_bound(B, L, O)
+    bound_ms, by = yardstick.dpsk_bound(B, L, O)
     report_shape("dpsk_score", f"{label}, B={B}, L={L}, O={O}",
                  lambda: cuda_dpsk.dpsk_score_cuda(*args), 20, bound_ms, by,
                  card)
@@ -2222,44 +1865,34 @@ def time_dpsk_shape(label: str, inputs: tuple, card: str) -> tuple:
 
 
 def phase_dpsk_score(card: str, cfg, rx: torch.Tensor, preset: str) -> tuple:
-    """The score kernel on the path's own correlations: against the plain
-    version (and, at ``medium``, at one NaN and one +inf sample and on the
-    engine's B = 1 search view through find_preamble), the decisions
-    through both, and timed.  Returns (max abs error, call ms, plain ms,
-    bound ms, basis) at the path's shape."""
+    """The score kernel on the path's own correlations: the decisions
+    through it and through the plain score (and, at ``medium``, on the
+    engine's B = 1 search view, one launch), and timed.  Returns (call ms,
+    plain ms, bound ms, basis) at the path's shape."""
     inputs = score_inputs(cfg, rx)
-    err = compare_dpsk_scores(*inputs, f"DPSK {preset} buffer")
     same_decisions(f"DPSK {preset}", cfg, rx)
     timed = time_dpsk_shape(f"DPSK {preset} buffer", inputs, card)
     if preset != "medium":
-        return (err, *timed)
-    corr, L, n_sym, O = inputs
-    for kind, (row, m) in (("nan", (3, 50_000)), ("inf", (5, 90_000))):
-        bad = corr.clone()
-        bad[row, m] = complex(float(kind), 0.0)
-        err = max(err, compare_dpsk_scores(bad, L, n_sym, O,
-                                           f"DPSK {preset} buffer, one "
-                                           f"{kind} correlation"))
+        return timed
     view, kw = engine_dpsk_view(cfg, rx[0])
     _, launches = launches_of(lambda: DP.find_preamble(cfg, view, **kw))
     require_launched("DPSK engine search view", launches, ("dpsk_score",))
     require(launches["dpsk_score"] == 1, "the engine's search view made "
             f"{launches['dpsk_score']} score launches")
     same_decisions("DPSK engine search view", cfg, view, **kw)
-    inputs = score_inputs(cfg, view, **kw)
-    err = max(err, compare_dpsk_scores(*inputs, "engine search view"))
-    time_dpsk_shape("engine search view", inputs, card)
-    return (err, *timed)
+    time_dpsk_shape("engine search view", score_inputs(cfg, view, **kw),
+                    card)
+    return timed
 
 
 def phase_dpsk(dev: torch.device, card: str) -> tuple:
     """Single-carrier DPSK (BASELINE #1) at the regression matrix's rows
     through decode_dpsk_batch (one score and one LDPC launch a buffer),
     timed with the score kernel and with the plain score it replaced; the
-    score kernel held to the plain version on each path's correlations;
-    the LDPC kernel on robust's -11 dB LLRs.  Returns medium's row of the
-    kernels line (launches, max abs error, call ms, plain ms, bound ms,
-    basis)."""
+    decisions through the score kernel held to those through the plain
+    score on each path's buffers; the LDPC kernel on robust's -11 dB LLRs.
+    Returns medium's row of the kernels line (launches, call ms, plain ms,
+    bound ms, basis)."""
     k = get_code(DPSK_RATE).k
     row = None
     for i, (preset, snr, B) in enumerate(DPSK_CASES):
@@ -2755,7 +2388,7 @@ def phase_engine_traffic(dev: torch.device, card: str):
     require(delivered and pings == 0,
             "engine traffic: the delivered frames differ from those sent")
     audio_s = len(audio) / 48000.0
-    busy = busy_ms(prof) / 1000.0
+    busy = device_busy_ns(prof) / 1e9
     print(f"engine traffic on {card}: audio {audio_s!r} s, wall {wall!r} s, "
           f"real-time factor {audio_s / wall!r}", flush=True)
     print(f"engine traffic on {card}: a poll every {TRAFFIC_POLL_CHUNKS} "
@@ -2795,19 +2428,19 @@ def phase_engine_kernels(dev: torch.device, card: str, one, largest,
     view = torch.from_numpy(audio[:T].copy()).to(dev)[None]
     a = SC.analytic_signal(view)
     G = SC.search_grid_size(COX_CFG, T)
-    compare_windows(a, 8, CP, G, "engine search view")
 
     def kernel():
-        cuda_sc.sc_windows_cuda(a, HALF, 8, CP, G)
+        return cuda_sc.sc_windows_cuda(a, HALF, 8, CP, G)
 
     def plain():
-        sc_windows_plain(a, HALF, 8, CP, G)
+        return sc_windows_plain(a, HALF, 8, CP, G)
 
+    require_windows_close("engine search view", kernel, plain)
     k_ms, p_ms = time_pair(kernel, plain, 50, 10)
     print(f"window sums engine view B=1 T={T} stride 8 G={G}: kernel "
-          f"{k_ms!r} ms, plain {p_ms!r} ms (calls, CUDA events) on {card}",
-          flush=True)
-    bound_ms, by = sc_bound(1, HALF, 8, G)
+          f"{k_ms!r} ms, plain {p_ms!r} ms (calls, CUDA events) on {card}; "
+          f"launch {plan_line(a, HALF, 8, CP, G)}", flush=True)
+    bound_ms, by = yardstick.sc_bound(1, HALF, 8, G)
     report_shape("sc_windows", f"engine search view, B=1, T={T}, stride 8, "
                  f"G={G}", kernel, 50, bound_ms, by, card)
     for label, (rate, blocks) in (("engine CW0 probe", one),
@@ -3097,7 +2730,7 @@ def drive_session(label: str, run, card: str):
     launches = {"sc_windows": cuda_sc.launches,
                 "ldpc_minsum": cuda_ldpc.launches}
     out[0].report(label, wall, card)
-    busy = busy_ms(prof) / 1000.0
+    busy = device_busy_ns(prof) / 1e9
     print(f"{label} on {card}: device busy {busy!r} s of {wall!r} s "
           f"(profiled): idle share {1.0 - busy / wall!r}", flush=True)
     return out, launches
@@ -3399,29 +3032,6 @@ def extreme_llrs(B: int) -> np.ndarray:
                            llr[3 * q:]]).astype(np.float32)
 
 
-NAN_BITS = np.array([0x7FC00000, 0xFFC00000, 0xFFFFFFFF, 0x7F800001],
-                    np.uint32)  # quiet NaNs, all ones, a low-payload one
-
-
-def nonfinite_llrs(rate: CodeRate, sigma: float, B: int, kind: str,
-                   seed: int = 99) -> np.ndarray:
-    """``waterfall_llrs(rate, sigma, B)`` with 1-3 LLRs of every even lane
-    set to +-inf (``kind`` "inf"; +inf and -inf meeting in a total make a
-    NaN) or to NaN of the ``NAN_BITS`` patterns (``kind`` "nan"), as
-    tests/test_torch_cuda.py::nonfinite_llrs builds them."""
-    x = waterfall_llrs(rate, sigma, B)
-    rng = np.random.default_rng(seed)
-    for b in range(0, B, 2):
-        k = int(rng.integers(1, 4))
-        pos = rng.choice(x.shape[1], k, replace=False)
-        if kind == "inf":
-            x[b, pos] = np.where(rng.integers(0, 2, k) == 1, np.inf, -np.inf)
-        else:
-            x[b, pos] = NAN_BITS[rng.integers(0, len(NAN_BITS), k)] \
-                .view(np.float32)
-    return x
-
-
 def bf16_vs_f32_shape(label: str, llrs: torch.Tensor, card: str,
                       reps: int):
     """The two instantiations' call ms at one shape (CUDA events around
@@ -3527,11 +3137,10 @@ def phase_bf16(dev: torch.device, card: str, deint: torch.Tensor):
     B = 16,384, an R1/4 trap-escape batch), its time beside the float32
     kernel's and its bound, test_ldpc.py's rate gates, the main
     path and the chirp cell with the modes on.  Returns the kernels line's
-    row values (launches, max abs error, ms, plain ms, bound ms, basis)."""
+    row values (launches, ms, plain ms, bound ms, basis)."""
     t0 = time.perf_counter()
     graph = ldpc_ops.graph_for(get_code(RATE), dev)
-    err = compare_decoders(RATE, deint, "main path 17 dB LLRs",
-                           msg_dtype=BF16)
+    compare_decoders(RATE, deint, "main path 17 dB LLRs", msg_dtype=BF16)
     wf = torch.from_numpy(waterfall_llrs(RATE, 0.62, BATCH)).to(dev)
     compare_decoders(RATE, wf, "waterfall R1_2 sigma=0.62", msg_dtype=BF16)
     rate, sigma = BF16_TRAP
@@ -3542,7 +3151,6 @@ def phase_bf16(dev: torch.device, card: str, deint: torch.Tensor):
     compare_decoders(RATE, torch.from_numpy(extreme_llrs(
         WATERFALL_BATCH)).to(dev), "LLRs near +-3e38 and +-1e-40",
         msg_dtype=BF16)
-    compare_nonfinite(dev, BF16)
     print(f"LDPC shared bytes per block (R1/2): bf16 "
           f"{cuda_ldpc.shared_bytes(graph, BF16)}, float32 "
           f"{cuda_ldpc.shared_bytes(graph, torch.float32)}", flush=True)
@@ -3572,7 +3180,7 @@ def phase_bf16(dev: torch.device, card: str, deint: torch.Tensor):
     require(ldpc_ops._DEFAULT_MSG_DTYPE == torch.float32 and not CH._BF16,
             "phase_bf16 left a bf16 mode on")
     print(f"phase_bf16: {time.perf_counter() - t0!r} s", flush=True)
-    return launches, err, k_ms, p_ms, bound_ms, by
+    return launches, k_ms, p_ms, bound_ms, by
 
 
 TOOLS_DIR = ROOT / "tools"
@@ -3731,8 +3339,8 @@ def time_recorded_shapes(tool: str, calls: KernelCalls, card: str) -> None:
         kw = {"max_iters": c.get("max_iters", DEFAULT_MAX_ITERS),
               "trap_escape": trap, "msg_dtype": c.get("msg_dtype")}
         _, ok, _ = cuda_ldpc.decode_cuda(graph, llrs, **kw)
-        bound_ms, by, passes = ldpc_bound(graph, ldpc_passes(
-            graph, llrs, trap_escape=trap))
+        bound_ms, by, passes = ldpc_run_bound(graph, llrs, trap,
+                                              torch.float32)
         shape = (f"{tool}, n={graph.n} k={graph.k}"
                  f"{', trap_escape' if trap else ''}, B={llrs.shape[0]}, "
                  f"{passes!r} iterations run per lane on average, "
@@ -3745,7 +3353,7 @@ def time_recorded_shapes(tool: str, calls: KernelCalls, card: str) -> None:
     for c in extreme_batches(calls.sc, "a"):
         args = (c["a"], c["half"], c["stride"], c["offset"], c["G"])
         a, half, stride, _, G = args
-        bound_ms, by = sc_bound(a.shape[0], half, stride, G)
+        bound_ms, by = yardstick.sc_bound(a.shape[0], half, stride, G)
         shape = (f"{tool}, B={a.shape[0]}, T={a.shape[-1]}, half={half}, "
                  f"stride={stride}, G={G}")
         report_shape("sc_windows", shape,
@@ -3961,18 +3569,14 @@ def main() -> None:
           f"{torch.cuda.get_device_name(dev)}", flush=True)
 
     phase_build()
-    phase_kernel_parity(dev)
     phase_tx_golden(dev)
-    ldpc_launches, deint, ldpc_err = phase_main_path(dev)
+    ldpc_launches, deint = phase_main_path(dev)
     ldpc_ms, ldpc_plain_ms, ldpc_bound_ms, ldpc_by = phase_timing(dev, card,
                                                                   deint)
     bf16_row = phase_bf16(dev, card, deint)
 
     _, tx = cox_tx(dev, 10)
     rx = noisy_buffers(tx, torch.Generator(device=dev).manual_seed(20), 1)[0]
-    sc_err = phase_window_parity(dev, rx)
-    phase_window_nonfinite(dev, rx)
-    phase_detection_parity(dev, rx)
     cox_launches = phase_cox_path(dev)
     sc_ms, sc_plain_ms, sc_bound_ms, sc_by = phase_cox_timing(dev, card)
     track_row = phase_pilot_track(card, noisy_buffers(
@@ -3980,9 +3584,6 @@ def main() -> None:
     lts_row = phase_lts_timing(card, noisy_buffers(
         tx, torch.Generator(device=dev).manual_seed(22), 1)[0])
 
-    _, tx = chirp_tx(dev, 30)
-    phase_chirp_detection(noisy_buffers(
-        tx, torch.Generator(device=dev).manual_seed(35), 1, CHIRP_SNR_DB)[0])
     rx, decimate_launches = phase_chirp_path(dev)
     decimate_row = phase_chirp_decimation(card, rx)
     phase_chirp_timing(dev, card)
@@ -4021,27 +3622,25 @@ def main() -> None:
     # are printed above; the DPSK score kernel's in the DPSK medium path;
     # the decimation kernel's in the chirp path, ms and bound_ms at the
     # acquired benchmark cell's shape; the pilot-tracking kernel's in the
-    # Cox path, its max_abs_err the largest LLR difference from the
-    # PyTorch step, ms and bound_ms one symbol at the Cox benchmark cell's
-    # shape; the LTS timing kernel's in the Cox path, its max_abs_err the
-    # largest lts_corr difference from the plain FFT matched filter, ms and
-    # bound_ms one gate set at the Cox cell's shape).  ms and bound_ms at
+    # Cox path, ms and bound_ms one symbol at the Cox benchmark cell's
+    # shape; the LTS timing kernel's in the Cox path, ms and bound_ms one
+    # gate set at the Cox cell's shape).  ms and bound_ms at
     # that path's shape; no single PyTorch call computes any of the seven
     # (library_ms null).
-    rows = [("ldpc_minsum", ldpc_launches, ldpc_err, ldpc_ms, ldpc_plain_ms,
+    rows = [("ldpc_minsum", ldpc_launches, ldpc_ms, ldpc_plain_ms,
              ldpc_bound_ms, ldpc_by),
-            ("sc_windows", cox_launches["sc_windows"], sc_err, sc_ms,
-             sc_plain_ms, sc_bound_ms, sc_by),
+            ("sc_windows", cox_launches["sc_windows"], sc_ms, sc_plain_ms,
+             sc_bound_ms, sc_by),
             ("ldpc_minsum_bf16", *bf16_row), ("dpsk_score", *dpsk_row),
             ("chirp_decimate", decimate_launches, *decimate_row),
             ("pilot_track", cox_launches["pilot_track"], *track_row),
             ("lts_timing", cox_launches["lts_timing"], *lts_row)]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source_of(name),
-         "replaces": KERNELS[name][1], "launches": launches,
-         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-         "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
-        for name, launches, err, ms, plain_ms, bound_ms, by in rows]}),
+         "replaces": KERNELS[name][1], "launches": launches, "ms": ms,
+         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+         "library_ms": None}
+        for name, launches, ms, plain_ms, bound_ms, by in rows]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,10 +8,26 @@ modules (``config``, ``fec.ldpc``, ``ofdm.carriers``,
 originals by ``tests/test_torch_host.py``.  The port imports neither jax
 nor anything of the JAX package.
 
-On CUDA tensors two hand-written kernels for Hopper run: the LDPC min-sum
-decoder (``csrc/ldpc_minsum.cu``) and the Schmidl-Cox window sums of
-preamble acquisition (``csrc/sc_windows.cu``); the plain PyTorch versions
-beside each kernel are test oracles and the CPU path.
+On CUDA tensors six hand-written CUDA sources for Hopper run, each built
+and loaded through ``ops/cuda_build.py`` and called from its wrapper
+``ops/cuda_*.py``:
+
+* ``csrc/ldpc_minsum.cu``, the LDPC min-sum decoder in float32 and
+  bfloat16-message instantiations (``ops/ldpc.decode_totals``);
+* ``csrc/sc_windows.cu``, the Schmidl-Cox window sums of preamble
+  acquisition (``ops/sc_windows.sc_windows``);
+* ``csrc/lts_timing.cu``, Schmidl-Cox LTS fine timing at each lane's
+  search window (``sync/schmidl_cox.lts_timing``);
+* ``csrc/pilot_track.cu``, one symbol's pilot tracking, equalization and
+  DQPSK demap inside the pilot-tracking scan
+  (``ofdm/demodulator._fused_tracking``);
+* ``csrc/chirp_decimate.cu``, chirp acquisition's decimating FIR
+  (``sync/chirp._decimate``);
+* ``csrc/dpsk_score.cu``, DPSK's preamble score
+  (``ops/dpsk_score.dpsk_score``).
+
+The plain PyTorch version beside each kernel is its test oracle and the
+CPU path.
 
 The port's ``ModemConfig``, the enums ``CodeRate`` and ``Modulation`` and
 the code table lookup ``get_code`` are re-exported here.

@@ -1,13 +1,19 @@
-"""Build and load of the port's hand-written CUDA kernels.
+"""Build, load and launch plumbing of the port's hand-written CUDA kernels.
 
 Each kernel source under ``csrc/`` is compiled with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface and loaded with
-``ctypes``.  The build runs at first use, into ``projectultra_tpu_torch/
-build/``, named by a hash of the source and the compiler command, so an
-edited source is rebuilt and an unchanged one is reused.  The compiler's
-``-Xptxas -v`` report (registers, shared memory, spills) is kept beside the
-library.  A failed build raises; nothing falls back to a plain PyTorch
-version.
+``ctypes`` (``KernelLibrary``).  The build runs at a library's first use,
+into ``projectultra_tpu_torch/build/``, named by a hash of the source and
+the compiler command, so an edited source is rebuilt and an unchanged one
+is reused.  The compiler's ``-Xptxas -v`` report (registers, shared memory,
+spills) is kept beside the library.  A failed build raises; nothing falls
+back to a plain PyTorch version.
+
+Every library's C entry points return 0 or an error code that
+``<prefix>_error_string`` names, and launch on the stream they are given:
+the wrappers (``ops/cuda_*.py``) pass PyTorch's current stream, allocate
+the outputs with ``torch.empty`` and never synchronise.  A wrapper checks
+its tensor arguments with ``check_tensor`` before anything is loaded.
 """
 
 from __future__ import annotations
@@ -83,27 +89,89 @@ def build(source: Path, flags: tuple[str, ...] = ()) -> Path:
 class KernelLibrary:
     """One kernel source's library, built and loaded once per process.
 
-    ``bind`` sets the ctypes signatures of the library's C entry points.
+    ``prefix`` names its C entry points (``<prefix>_error_string`` among
+    them); ``bind`` sets the ctypes signatures of the others.
     ``build_seconds`` is what the first ``load`` took (build or cache
     lookup, plus the load)."""
 
-    def __init__(self, source: Path, flags: tuple[str, ...],
+    def __init__(self, prefix: str, source: Path, flags: tuple[str, ...],
                  bind: Callable[[ctypes.CDLL], None]):
-        self.source, self.flags, self._bind = source, flags, bind
+        self.prefix, self.source, self.flags = prefix, source, flags
+        self._bind = bind
         self.build_seconds = 0.0
         self._lib = None
         self._lock = threading.Lock()
 
+    def command(self, nvcc: str, output: Path) -> list[str]:
+        """The compiler command that builds the library at ``output``."""
+        return nvcc_command(nvcc, self.source, output, self.flags)
+
     def load(self) -> ctypes.CDLL:
         """Build (if needed) and load the library; raises on failure."""
+        lib = self._lib
+        if lib is not None:
+            return lib
         with self._lock:
             if self._lib is None:
                 t0 = time.perf_counter()
                 lib = ctypes.CDLL(str(build(self.source, self.flags)))
+                error_string = getattr(lib, f"{self.prefix}_error_string")
+                error_string.argtypes = [ctypes.c_int]
+                error_string.restype = ctypes.c_char_p
                 self._bind(lib)
                 self.build_seconds = time.perf_counter() - t0
                 self._lib = lib
             return self._lib
+
+    def run(self, entry: str, *args) -> None:
+        """Calls the C entry point ``entry`` with ``args``; a nonzero return
+        raises RuntimeError("<entry> failed: <message> (<code>)")."""
+        lib = self.load()
+        err = getattr(lib, entry)(*args)
+        if err != 0:
+            msg = getattr(lib, f"{self.prefix}_error_string")(err).decode()
+            raise RuntimeError(f"{entry} failed: {msg} ({err})")
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
+                 shape: tuple, layout: str,
+                 device: torch.device | None) -> None:
+    """Raises ValueError unless the kernel argument ``name`` is a
+    ``dtype`` tensor of ``shape`` (an int per axis, or a name for any
+    size) on ``device`` (None: on any CUDA device), laid out as
+    ``layout``: "contiguous"; "aligned" (contiguous, 16-byte aligned);
+    "rows" (unit column stride, any row stride); "disjoint rows" (unit
+    column stride where there is more than one column, rows that do not
+    overlap); "any"."""
+    size = t.shape
+    bad = t.dtype != dtype
+    if size != shape:  # (always so where shape names an axis)
+        bad = bad or len(size) != len(shape)
+        for want, got in zip(shape, size):
+            bad = bad or (want != got and want.__class__ is int)
+    if bad:
+        raise ValueError(f"{name} must be [{', '.join(map(str, shape))}] "
+                         f"{dtype}, got {tuple(size)} {t.dtype}")
+    if layout == "contiguous" or layout == "aligned":
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous: strides "
+                             f"{t.stride()}")
+        if layout == "aligned" and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
+                             f"copies rows in 16-byte chunks)")
+    elif layout == "rows" or layout == "disjoint rows":
+        (B, T), (ld, step) = size, t.stride()
+        if step != 1 and (T > 1 or layout == "rows"):
+            raise ValueError(f"{name} must have unit column stride, got "
+                             f"strides {(ld, step)}")
+        if layout == "disjoint rows" and B > 1 and ld < T:
+            raise ValueError(f"{name}'s rows overlap: strides {(ld, step)}")
+    if device is None:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got one on "
+                             f"{t.device}")
+    elif t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
 
 
 def sm_count(device: torch.device) -> int:

@@ -6,15 +6,9 @@ the JAX package it is XLA's convolution (projectultra_tpu/sync/chirp.py:
 174-200); ``sync/chirp._decimate_plain`` is the plain PyTorch version, the
 CPU path and the kernel's oracle.
 
-The source is built at first use by ``cuda_build``: ``nvcc`` for
-``sm_90a`` into a plain-C shared library loaded with ``ctypes``.  A failed
-build raises; nothing falls back to the plain version.
-
 The kernel reads the samples in place, with their row stride, and takes
 the 2 x 128 taps by value from the host (no device read); the bf16 mode
 rounds the samples and the taps to bfloat16 before its float32 products.
-It launches on PyTorch's current stream, does not synchronise and
-allocates nothing: this wrapper allocates the output with ``torch.empty``.
 ``launches`` counts the kernel launches made through ``decimate_cuda``.
 
 A block covers ``tile_for`` consecutive outputs of one row, PER_THREAD a
@@ -25,7 +19,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -64,8 +57,6 @@ def _bind(lib: ctypes.CDLL) -> None:
     for name in ("taps", "per_thread", "max_threads"):
         getattr(lib, f"chirp_decimate_{name}").argtypes = []
         getattr(lib, f"chirp_decimate_{name}").restype = ci
-    lib.chirp_decimate_error_string.argtypes = [ci]
-    lib.chirp_decimate_error_string.restype = ctypes.c_char_p
     if (lib.chirp_decimate_taps(), lib.chirp_decimate_per_thread(),
             lib.chirp_decimate_max_threads()) \
             != (TAPS, PER_THREAD, MAX_THREADS):
@@ -73,17 +64,7 @@ def _bind(lib: ctypes.CDLL) -> None:
                            "disagree on the kernel's sizes")
 
 
-LIBRARY = cuda_build.KernelLibrary(SOURCE, FLAGS, _bind)
-
-
-def nvcc_command(nvcc: str, source: Path, output: Path) -> list[str]:
-    """The compiler command for the kernel library."""
-    return cuda_build.nvcc_command(nvcc, source, output, FLAGS)
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library; raises on failure."""
-    return LIBRARY.load()
+LIBRARY = cuda_build.KernelLibrary("chirp_decimate", SOURCE, FLAGS, _bind)
 
 
 def tile_for(B: int, Tb: int, sms: int) -> int:
@@ -118,11 +99,7 @@ def card_plan(B: int, T: int, device: torch.device) -> dict:
     plan = launch_plan(B, T, cuda_build.sm_count(device))
     out = (ctypes.c_longlong * 4)()
     with torch.cuda.device(device):
-        lib = load_library()
-        err = lib.chirp_decimate_plan(B, T, plan["tile"], out)
-    if err != 0:
-        msg = lib.chirp_decimate_error_string(err).decode()
-        raise RuntimeError(f"chirp_decimate_plan failed: {msg} ({err})")
+        LIBRARY.run("chirp_decimate_plan", B, T, plan["tile"], out)
     return plan | {"library": {"blocks": int(out[0]), "threads": int(out[1]),
                                "shared_bytes": int(out[2])},
                    "blocks_per_sm": int(out[3])}
@@ -137,23 +114,10 @@ def _check(samples: torch.Tensor, taps: np.ndarray) -> None:
     if taps.shape != (2, TAPS) or taps.dtype != np.float32:
         raise ValueError(f"taps must be [2, {TAPS}] float32, got "
                          f"{taps.shape} {taps.dtype}")
-    if samples.dim() != 2:
-        raise ValueError(f"samples must be [B, T], got "
-                         f"{tuple(samples.shape)}")
-    if samples.dtype != torch.float32:
-        raise ValueError(f"the decimation kernel takes float32, got "
-                         f"{samples.dtype}")
-    B, T = samples.shape
-    if T > 1 and samples.stride(1) != 1:
-        raise ValueError(f"samples must have unit column stride, got "
-                         f"{samples.stride()}")
-    if B > 1 and samples.stride(0) < T:
-        raise ValueError(f"samples' rows overlap: stride {samples.stride()}")
-    if T >= 2**31 - 256:
-        raise ValueError(f"samples has too many columns: {T}")
-    if samples.device.type != "cuda":
-        raise ValueError(f"the decimation kernel needs a CUDA tensor, got "
-                         f"{samples.device}")
+    cuda_build.check_tensor("samples", samples, torch.float32, ("B", "T"),
+                            "disjoint rows", None)
+    if samples.shape[1] >= 2**31 - 256:
+        raise ValueError(f"samples has too many columns: {samples.shape[1]}")
 
 
 def decimate_cuda(samples: torch.Tensor, taps: np.ndarray,
@@ -166,7 +130,7 @@ def decimate_cuda(samples: torch.Tensor, taps: np.ndarray,
     _check(samples, taps)
     B, T = samples.shape
     dev = samples.device
-    lib = load_library()
+    LIBRARY.load()  # built at the first call, an empty one too
     out = torch.empty((B, -(-T // DECIM)), dtype=torch.complex64, device=dev)
     if B == 0 or T == 0:
         return out
@@ -174,12 +138,9 @@ def decimate_cuda(samples: torch.Tensor, taps: np.ndarray,
     ldx = samples.stride(0) if B > 1 else T
     tile = tile_for(B, out.shape[1], cuda_build.sm_count(dev))
     with torch.cuda.device(dev):
-        err = lib.chirp_decimate_launch(
-            samples.data_ptr(), ldx, B, T, tile,
+        LIBRARY.run(
+            "chirp_decimate_launch", samples.data_ptr(), ldx, B, T, tile,
             _taps_arg(np.ascontiguousarray(taps).tobytes()), int(bool(bf16)),
             out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        msg = lib.chirp_decimate_error_string(err).decode()
-        raise RuntimeError(f"chirp_decimate_launch failed: {msg} ({err})")
     launches += 1
     return out

@@ -3,17 +3,11 @@ score (``csrc/dpsk_score.cu``), the card's form of the score inside
 ``psk/dpsk.py::find_preamble`` (an XLA fusion in the JAX package,
 projectultra_tpu/psk/dpsk.py:305-317).
 
-The source is built at first use by ``cuda_build``: ``nvcc`` for
-``sm_90a`` into a plain-C shared library loaded with ``ctypes``, compiled
-with ``--fmad=false`` so that the kernel's products and sums round as
-separate operations.  A failed build raises; nothing falls back to the
-plain PyTorch version.
-
-The kernel reads the correlations in place, with their row stride, and
-takes the 38 expected signs by value from the host (no device read).  It
-launches on PyTorch's current stream, does not synchronise and allocates
-nothing: this wrapper allocates the score with ``torch.empty``.
-``launches`` counts the kernel launches made through ``dpsk_score_cuda``.
+Built (by ``cuda_build``) with ``--fmad=false`` so that the kernel's
+products and sums round as separate operations.  The kernel reads the
+correlations in place, with their row stride, and takes the 38 expected
+signs by value from the host (no device read).  ``launches`` counts the
+kernel launches made through ``dpsk_score_cuda``.
 
 A block covers 32 consecutive residues r of one row and up to
 ``MAX_TILE`` consecutive symbol indices k of the offsets o = r + k*L
@@ -23,7 +17,6 @@ A block covers 32 consecutive residues r of one row and up to
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -61,25 +54,13 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.dpsk_score_pairs.restype = ci
     lib.dpsk_score_max_tile.argtypes = []
     lib.dpsk_score_max_tile.restype = ci
-    lib.dpsk_score_error_string.argtypes = [ci]
-    lib.dpsk_score_error_string.restype = ctypes.c_char_p
     if (lib.dpsk_score_pairs(), lib.dpsk_score_max_tile()) \
             != (PAIRS, MAX_TILE):
         raise RuntimeError("csrc/dpsk_score.cu and ops/cuda_dpsk.py disagree "
                            "on the kernel's sizes")
 
 
-LIBRARY = cuda_build.KernelLibrary(SOURCE, FLAGS, _bind)
-
-
-def nvcc_command(nvcc: str, source: Path, output: Path) -> list[str]:
-    """The compiler command for the kernel library."""
-    return cuda_build.nvcc_command(nvcc, source, output, FLAGS)
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library; raises on failure."""
-    return LIBRARY.load()
+LIBRARY = cuda_build.KernelLibrary("dpsk_score", SOURCE, FLAGS, _bind)
 
 
 def tile_for(B: int, L: int, O: int, sms: int) -> int:
@@ -97,19 +78,12 @@ def tile_for(B: int, L: int, O: int, sms: int) -> int:
 
 
 def _check(corr: torch.Tensor, L: int, n_sym: int, O: int, expected):
-    if corr.device.type != "cuda":
-        raise ValueError(f"the score kernel needs a CUDA tensor, got "
-                         f"{corr.device}")
-    if corr.dtype != torch.complex64:
-        raise ValueError(f"the score kernel takes complex64, got "
-                         f"{corr.dtype}")
+    cuda_build.check_tensor("corr", corr, torch.complex64, ("B", "n_corr"),
+                            "rows", None)
     signs = check_args(corr, L, n_sym, O, expected)
     if n_sym - 1 != PAIRS:
         raise ValueError(f"the score kernel sums {PAIRS} differentials, got "
                          f"n_sym={n_sym}")
-    if corr.stride(1) != 1:
-        raise ValueError(f"corr must have unit column stride, got "
-                         f"{corr.stride()}")
     if corr.shape[0] > 65535:
         raise ValueError(f"corr has too many rows for the kernel's grid: "
                          f"{corr.shape[0]}")
@@ -124,11 +98,7 @@ def launch_plan(B: int, n_corr: int, L: int, O: int,
     tile = tile_for(B, L, O, cuda_build.sm_count(device))
     out = (ctypes.c_longlong * 4)()
     with torch.cuda.device(device):
-        lib = load_library()
-        err = lib.dpsk_score_plan(B, n_corr, L, O, tile, out)
-    if err != 0:
-        msg = lib.dpsk_score_error_string(err).decode()
-        raise RuntimeError(f"dpsk_score_plan failed: {msg} ({err})")
+        LIBRARY.run("dpsk_score_plan", B, n_corr, L, O, tile, out)
     return {"tile": tile, "tiles": int(out[3]), "blocks": int(out[0]),
             "shared_bytes": int(out[1]), "blocks_per_sm": int(out[2])}
 
@@ -144,7 +114,7 @@ def dpsk_score_cuda(corr: torch.Tensor, L: int, n_sym: int, O: int,
     # (a one-row view may carry any row stride)
     lda = corr.stride(0) if B > 1 else n_corr
     dev = corr.device
-    lib = load_library()
+    LIBRARY.load()  # built at the first call, an empty one too
     score = torch.empty((B, O), dtype=torch.float32, device=dev)
     if B == 0 or O == 0:
         return score
@@ -155,12 +125,9 @@ def dpsk_score_cuda(corr: torch.Tensor, L: int, n_sym: int, O: int,
     host_signs = (ctypes.c_float * PAIRS)(*signs.tolist())
     tile = tile_for(B, L, O, cuda_build.sm_count(dev))
     with torch.cuda.device(dev):
-        err = lib.dpsk_score_launch(
-            corr.data_ptr(), lda, B, n_corr, L, O, tile,
-            host_signs, threshold, inv_pairs, score.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        msg = lib.dpsk_score_error_string(err).decode()
-        raise RuntimeError(f"dpsk_score_launch failed: {msg} ({err})")
+        LIBRARY.run("dpsk_score_launch", corr.data_ptr(), lda, B, n_corr, L,
+                    O, tile, host_signs, threshold, inv_pairs,
+                    score.data_ptr(),
+                    torch.cuda.current_stream(dev).cuda_stream)
     launches += 1
     return score

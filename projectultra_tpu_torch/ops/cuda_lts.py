@@ -8,16 +8,10 @@ and masked argmax (projectultra_tpu/sync/schmidl_cox.py::detect_preamble);
 ``lts_timing_plain`` is the plain PyTorch version, the CPU path and the
 kernel's oracle on the card.
 
-The source is built at first use by ``cuda_build``: ``nvcc`` for
-``sm_90a`` into a plain-C shared library loaded with ``ctypes``.  A failed
-build raises; nothing falls back to the plain version.
-
 The kernel reads the samples in place, with their row stride, the
 template from a per-device copy made once, ``sync_off`` and the lanes' DC
 bins of the signal FFT (a lane whose DC bin is not finite held a NaN or
 infinite sample, and the plain matched filter is NaN there throughout).
-It launches on PyTorch's current stream, does not synchronise and
-allocates nothing: this wrapper allocates the outputs with ``torch.empty``.
 ``launches`` counts the kernel runs made through ``lts_timing_cuda``.
 
 One block a lane; ``launch_plan`` says what a launch at given sizes runs.
@@ -27,7 +21,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -59,25 +52,13 @@ def _bind(lib: ctypes.CDLL) -> None:
     for name in ("per_thread", "threads"):
         getattr(lib, f"lts_timing_{name}").argtypes = []
         getattr(lib, f"lts_timing_{name}").restype = ci
-    lib.lts_timing_error_string.argtypes = [ci]
-    lib.lts_timing_error_string.restype = ctypes.c_char_p
     if (lib.lts_timing_per_thread(), lib.lts_timing_threads()) \
             != (PER_THREAD, THREADS):
         raise RuntimeError("csrc/lts_timing.cu and ops/cuda_lts.py disagree "
                            "on the kernel's sizes")
 
 
-LIBRARY = cuda_build.KernelLibrary(SOURCE, FLAGS, _bind)
-
-
-def nvcc_command(nvcc: str, source: Path, output: Path) -> list[str]:
-    """The compiler command for the kernel library."""
-    return cuda_build.nvcc_command(nvcc, source, output, FLAGS)
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library; raises on failure."""
-    return LIBRARY.load()
+LIBRARY = cuda_build.KernelLibrary("lts_timing", SOURCE, FLAGS, _bind)
 
 
 def _round_up(v: int, m: int) -> int:
@@ -120,11 +101,7 @@ def card_plan(B: int, L: int, plen: int, T: int,
     plan = launch_plan(B, L, plen)
     out = (ctypes.c_longlong * 4)()
     with torch.cuda.device(device):
-        lib = load_library()
-        err = lib.lts_timing_plan(B, T, L, plen, out)
-    if err != 0:
-        msg = lib.lts_timing_error_string(err).decode()
-        raise RuntimeError(f"lts_timing_plan failed: {msg} ({err})")
+        LIBRARY.run("lts_timing_plan", B, T, L, plen, out)
     return plan | {"library": {"blocks": int(out[0]), "threads": int(out[1]),
                                "shared_bytes": int(out[2])},
                    "blocks_per_sm": int(out[3])}
@@ -143,32 +120,17 @@ def _template(config, device: torch.device) -> tuple[torch.Tensor, float]:
 
 def _check(samples: torch.Tensor, sync_off: torch.Tensor, dc: torch.Tensor,
            L: int) -> None:
-    if samples.dim() != 2 or samples.dtype != torch.float32:
-        raise ValueError(f"samples must be [B, T] float32, got "
-                         f"{tuple(samples.shape)} {samples.dtype}")
+    check = cuda_build.check_tensor
+    check("samples", samples, torch.float32, ("B", "T"), "disjoint rows",
+          None)
     B, T = samples.shape
-    if samples.device.type != "cuda":
-        raise ValueError(f"the LTS timing kernel needs a CUDA tensor, got "
-                         f"{samples.device}")
-    if T > 1 and samples.stride(1) != 1:
-        raise ValueError(f"samples must have unit column stride, got "
-                         f"{samples.stride()}")
-    if B > 1 and samples.stride(0) < T:
-        raise ValueError(f"samples' rows overlap: stride {samples.stride()}")
     if not L <= T < 2**31 - 1:
         raise ValueError(f"a buffer of {T} samples and a template of {L}")
     if L % 8 or L < 2 * PER_THREAD:
         raise ValueError(f"the template's length {L} must be a multiple of "
                          f"8, at least {2 * PER_THREAD}")
-    if sync_off.shape != (B,) or sync_off.dtype != torch.int64 \
-            or sync_off.device != samples.device:
-        raise ValueError(f"sync_off must be [{B}] int64 on {samples.device}, "
-                         f"got {tuple(sync_off.shape)} {sync_off.dtype} on "
-                         f"{sync_off.device}")
-    if dc.shape != (B,) or dc.dtype != torch.complex64 \
-            or dc.device != samples.device:
-        raise ValueError(f"dc must be [{B}] complex64 on {samples.device}, "
-                         f"got {tuple(dc.shape)} {dc.dtype} on {dc.device}")
+    check("sync_off", sync_off, torch.int64, (B,), "any", samples.device)
+    check("dc", dc, torch.complex64, (B,), "any", samples.device)
 
 
 def lts_timing_cuda(config, samples: torch.Tensor, sync_off: torch.Tensor,
@@ -186,7 +148,7 @@ def lts_timing_cuda(config, samples: torch.Tensor, sync_off: torch.Tensor,
     B, T = samples.shape
     dev = samples.device
     plen = config.fft_size + config.cyclic_prefix
-    lib = load_library()
+    LIBRARY.load()  # built at the first call, an empty one too
     lts_start = torch.empty(B, dtype=torch.int32, device=dev)
     data_start = torch.empty(B, dtype=torch.int32, device=dev)
     lts_corr = torch.empty(B, dtype=torch.float32, device=dev)
@@ -196,14 +158,11 @@ def lts_timing_cuda(config, samples: torch.Tensor, sync_off: torch.Tensor,
     ldx = samples.stride(0) if B > 1 else T
     ld_dc = dc.stride(0) if B > 1 else 0
     with torch.cuda.device(dev):
-        err = lib.lts_timing_launch(
-            samples.data_ptr(), ldx, B, T, tmpl.data_ptr(), L, plen,
-            e_ref, sync_off.data_ptr(), dc.data_ptr(),
-            ld_dc, lts_start.data_ptr(), data_start.data_ptr(),
+        LIBRARY.run(
+            "lts_timing_launch", samples.data_ptr(), ldx, B, T,
+            tmpl.data_ptr(), L, plen, e_ref, sync_off.data_ptr(),
+            dc.data_ptr(), ld_dc, lts_start.data_ptr(), data_start.data_ptr(),
             lts_corr.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        msg = lib.lts_timing_error_string(err).decode()
-        raise RuntimeError(f"lts_timing_launch failed: {msg} ({err})")
     launches += 1
     return lts_start, data_start, lts_corr
 

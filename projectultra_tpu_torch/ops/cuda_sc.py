@@ -1,16 +1,9 @@
 """Wrapper of the hand-written Hopper Schmidl-Cox window kernel
 (``csrc/sc_windows.cu``), the port of ``ops/pallas_sync.py::_sc_kernel``.
 
-The source is built at first use by ``cuda_build``:
-``nvcc`` for ``sm_90a`` into a plain-C shared library loaded with
-``ctypes``.  A failed build raises; nothing falls back to the plain
-PyTorch version.
-
 The kernel reads the analytic signal in place, with its row stride (the
 signal is a column slice of the Hilbert transform's [B, n_fft] output, and
-a contiguous copy would cost one more pass over it).  It launches on
-PyTorch's current stream, does not synchronise and allocates nothing: this
-wrapper allocates the outputs with ``torch.empty``.  ``launches`` counts
+a contiguous copy would cost one more pass over it).  ``launches`` counts
 the kernel launches made through ``sc_windows_cuda``.  Rows the kernel
 cannot read as 16-byte pairs of samples (an odd row stride, an unaligned
 base) are first copied into rows of even length.
@@ -24,7 +17,6 @@ items, blocks, ring stages, shared bytes a block).
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
 
 import torch
 
@@ -47,21 +39,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.sc_windows_plan.argtypes = [ci] * 8 + [ctypes.POINTER(
         ctypes.c_longlong)]
     lib.sc_windows_plan.restype = ci
-    lib.sc_windows_error_string.argtypes = [ci]
-    lib.sc_windows_error_string.restype = ctypes.c_char_p
 
 
-LIBRARY = cuda_build.KernelLibrary(SOURCE, FLAGS, _bind)
-
-
-def nvcc_command(nvcc: str, source: Path, output: Path) -> list[str]:
-    """The compiler command for the kernel library."""
-    return cuda_build.nvcc_command(nvcc, source, output, FLAGS)
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library; raises on failure."""
-    return LIBRARY.load()
+LIBRARY = cuda_build.KernelLibrary("sc_windows", SOURCE, FLAGS, _bind)
 
 
 #: Strides the kernel supports: 1, or an even power of two whose stride/2
@@ -107,11 +87,8 @@ def launch_plan(B: int, T: int, half: int, stride: int, offset: int, G: int,
     tile = tile_for(B, G, half, stride, sms)
     out = (ctypes.c_longlong * 4)()
     with torch.cuda.device(device):
-        err = load_library().sc_windows_plan(B, T, half, stride, offset, G,
-                                             tile, sms, out)
-    if err != 0:
-        msg = load_library().sc_windows_error_string(err).decode()
-        raise RuntimeError(f"sc_windows_plan failed: {msg} ({err})")
+        LIBRARY.run("sc_windows_plan", B, T, half, stride, offset, G, tile,
+                    sms, out)
     return {"tile": tile, "items": int(out[3]), "blocks": int(out[1]),
             "stages": int(out[0]), "shared_bytes": int(out[2])}
 
@@ -137,14 +114,8 @@ def sc_windows_cuda(a: torch.Tensor, half: int, stride: int, offset: int,
     column stride, any row stride) -> (P [B, G] complex64, R1 [B, G] f32,
     R2 [B, G] f32); the counterpart of ``sc_windows_plain``."""
     global launches
-    if a.device.type != "cuda":
-        raise ValueError(f"the window kernel needs a CUDA tensor, got {a.device}")
-    if a.dtype != torch.complex64:
-        raise ValueError(f"the window kernel takes complex64, got {a.dtype}")
-    if a.dim() != 2:
-        raise ValueError(f"a must be [B, T], got shape {tuple(a.shape)}")
-    if a.stride(1) != 1:
-        raise ValueError(f"a must have unit column stride, got {a.stride()}")
+    cuda_build.check_tensor("a", a, torch.complex64, ("B", "T"), "rows",
+                            None)
     B, T = a.shape
     if T >= 2 ** 31 or B > 65535:
         raise ValueError(f"a is too large for the kernel's grid: "
@@ -155,7 +126,7 @@ def sc_windows_cuda(a: torch.Tensor, half: int, stride: int, offset: int,
                          f"even half, got stride={stride}, half={half}")
     a = _float4_rows(a)
     dev = a.device
-    lib = load_library()
+    LIBRARY.load()  # built at the first call, an empty one too
     P = torch.empty((B, G), dtype=torch.complex64, device=dev)
     R1 = torch.empty((B, G), dtype=torch.float32, device=dev)
     R2 = torch.empty((B, G), dtype=torch.float32, device=dev)
@@ -163,13 +134,10 @@ def sc_windows_cuda(a: torch.Tensor, half: int, stride: int, offset: int,
         return P, R1, R2
     sms = cuda_build.sm_count(dev)
     with torch.cuda.device(dev):
-        err = lib.sc_windows_launch(
-            a.data_ptr(), a.stride(0), B, T, half, stride, offset, G,
-            tile_for(B, G, half, stride, sms), sms,
+        LIBRARY.run(
+            "sc_windows_launch", a.data_ptr(), a.stride(0), B, T, half,
+            stride, offset, G, tile_for(B, G, half, stride, sms), sms,
             P.data_ptr(), R1.data_ptr(), R2.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        msg = lib.sc_windows_error_string(err).decode()
-        raise RuntimeError(f"sc_windows_launch failed: {msg} ({err})")
     launches += 1
     return P, R1, R2

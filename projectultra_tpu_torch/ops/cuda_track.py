@@ -4,12 +4,9 @@ lane, in one launch where the plain PyTorch path
 (``ofdm/demodulator.update_channel_estimate``, ``equalize``,
 ``demodulate_symbol``) takes ~250.
 
-The source is built at first use by ``cuda_build`` into a plain-C shared
-library loaded with ``ctypes``; a failed build raises and nothing falls
-back.  The kernel launches on PyTorch's current stream and does not
-synchronise, so a CUDA graph captures it with the scan around it; this
-wrapper allocates the new state's tensors (the channel estimate as a copy
-of the old one, whose used bins the kernel then writes).  ``launches``
+A CUDA graph captures the kernel with the scan around it; this wrapper
+allocates the new state's tensors (the channel estimate as a copy of the
+old one, whose used bins the kernel then writes).  ``launches``
 counts the kernel's runs on the card: each call of ``track_dqpsk_cuda``
 outside a graph capture, and, added by the scan, each captured launch a
 replay of its graph runs again.  The PyTorch path is its oracle on the
@@ -47,16 +44,9 @@ def _bind(lib: ctypes.CDLL) -> None:
                                        ctypes.POINTER(vp)] + [ci] * 6 \
         + [cf] * 4 + [vp]
     lib.pilot_track_launch.restype = ci
-    lib.pilot_track_error_string.argtypes = [ci]
-    lib.pilot_track_error_string.restype = ctypes.c_char_p
 
 
-LIBRARY = cuda_build.KernelLibrary(SOURCE, FLAGS, _bind)
-
-
-def load_library() -> ctypes.CDLL:
-    """The built kernel library (built at the first call)."""
-    return LIBRARY.load()
+LIBRARY = cuda_build.KernelLibrary("pilot_track", SOURCE, FLAGS, _bind)
 
 
 @functools.lru_cache(maxsize=None)
@@ -113,16 +103,12 @@ def track_dqpsk_cuda(config, state, fd: torch.Tensor):
     inv_sym = float(np.float32(1.0) / np.float32(2 * np.pi * sym_dur))
     inv_two_pi = float(np.float32(1.0) / np.float32(2 * np.pi))
     with torch.cuda.device(dev):
-        lib = load_library()
-        err = lib.pilot_track_launch(
-            fd.data_ptr(), _pointers(old), _pointers(new), llrs.data_ptr(),
-            _pointers(tables), B, Cd, Np, Ci, N,
-            int(not is_differential(config.modulation)), inv_sym,
-            inv_two_pi, float(np.float32(1.0 / N)),
-            50.0 * (N / 512.0), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        msg = lib.pilot_track_error_string(err).decode()
-        raise RuntimeError(f"pilot_track_launch failed: {msg} ({err})")
+        LIBRARY.run(
+            "pilot_track_launch", fd.data_ptr(), _pointers(old),
+            _pointers(new), llrs.data_ptr(), _pointers(tables), B, Cd, Np,
+            Ci, N, int(not is_differential(config.modulation)), inv_sym,
+            inv_two_pi, float(np.float32(1.0 / N)), 50.0 * (N / 512.0),
+            torch.cuda.current_stream(dev).cuda_stream)
     if not torch.cuda.is_current_stream_capturing():
         launches += 1
     return state._replace(**dict(zip(FIELDS, new))), llrs

@@ -27,8 +27,9 @@ decode takes bf16 from the module default.
 Schmidl-Cox windows: P, R1 and R2 within rtol 2e-4, atol 2e-3 (the
 tolerance of tests/test_pallas_sync.py; the kernel sums in another order)
 at strides 1, 2 and 8, G below one work item and ragged last items, odd B,
-odd offsets, lda > T and odd contiguous rows, a B = 1 row long enough
-that every block walks several items through its ring; at one +inf or NaN
+odd offsets, lda > T and odd contiguous rows, a Cox buffer's B = 512, a
+B = 1 row long enough that every block walks several items through its
+ring, one 600,000-sample row within 1e-4 of float64 sums; at one +inf or NaN
 sample (Cox- and engine-shaped buffers, strides 1 and 8, half 256 and 512)
 non-finite exactly where the plain version is, of the same kind; and
 detection through the kernel identical to detection through the plain
@@ -370,17 +371,18 @@ def lanes_that_differ(k, got, want):
 def test_kernels_at_nonfinite_llrs(dev, monkeypatch, msg, threads,
                                    trap_escape):
     """Both instantiations on LLRs with +-inf and NaN (``nonfinite_llrs``,
-    B = 256 at R1/2 and R1/4): bits, ok flags and iterations equal to the
-    plain decoder on every lane, and the totals equal, NaN to NaN -- the
-    v2c clamp and min2 keep a NaN, as jnp.clip/jnp.minimum do."""
+    B = 256 and 4,096 at R1/2 and R1/4): bits, ok flags and iterations
+    equal to the plain decoder on every lane, and the totals equal, NaN to
+    NaN -- the v2c clamp and min2 keep a NaN, as jnp.clip/jnp.minimum
+    do."""
     monkeypatch.setattr(cuda_ldpc, "block_threads_for", lambda B, sms: threads)
     dtype = torch.bfloat16 if msg == "bf16" else torch.float32
     counter = "launches_bf16" if msg == "bf16" else "launches"
     report, nan_totals = {}, 0
     for rate, sigma in NONFINITE:
         graph = T.graph_for(ldpc.get_code(rate), dev)
-        for kind in ("inf", "nan"):
-            x = torch.from_numpy(nonfinite_llrs(rate, sigma, 256, kind)).to(dev)
+        for kind, B in ((k, B) for k in ("inf", "nan") for B in (256, 4096)):
+            x = torch.from_numpy(nonfinite_llrs(rate, sigma, B, kind)).to(dev)
             before = getattr(cuda_ldpc, counter)
             got = cuda_ldpc.decode_cuda(graph, x, trap_escape=trap_escape,
                                         msg_dtype=dtype)
@@ -388,13 +390,13 @@ def test_kernels_at_nonfinite_llrs(dev, monkeypatch, msg, threads,
             want = T.decode_plain(graph, x, trap_escape=trap_escape,
                                   msg_dtype=dtype)
             decisions, totals = lanes_that_differ(graph.k, got, want)
-            report[f"{NAMES[rate]} {kind}"] = (int(decisions.sum()),
-                                               int(totals.sum()))
+            report[f"{NAMES[rate]} {kind} B={B}"] = (int(decisions.sum()),
+                                                     int(totals.sum()))
             nan_totals += int(torch.isnan(want[0]).any(1).sum())
     assert nan_totals > 0
     assert all(v == (0, 0) for v in report.values()), (
-        f"lanes of 256 that differ from the plain decoder (decisions, "
-        f"totals): {report}")
+        f"lanes that differ from the plain decoder (decisions, totals): "
+        f"{report}")
 
 
 def test_bf16_default_decode_goes_through_the_bf16_kernel(dev):
@@ -512,11 +514,35 @@ def _assert_windows_close(a, half, stride, offset, G):
 @pytest.mark.parametrize("T", [18856, 9001, 600])
 @pytest.mark.parametrize("stride,offset", [(1, 0), (1, 48), (8, 48)])
 def test_window_kernel_equals_plain(dev, T, stride, offset):
-    a = _analytic_on(dev, 16, T, seed=T)
-    assert not a.is_contiguous()
-    G = (T - 2 * 256 - offset) // stride + 1
-    _assert_windows_close(a, 256, stride, offset, G)
-    _assert_windows_close(a, 256, stride, offset, min(G, 5))
+    """B = 16, and B = 512 (a Cox buffer's batch: tiles of 460 at its
+    T = 18,856, stride 8)."""
+    for B, seed in ((16, T), (512, T + 1)):
+        a = _analytic_on(dev, B, T, seed=seed)
+        assert not a.is_contiguous()
+        G = (T - 2 * 256 - offset) // stride + 1
+        _assert_windows_close(a, 256, stride, offset, G)
+        _assert_windows_close(a, 256, stride, offset, min(G, 5))
+
+
+def test_window_sums_hold_float64_on_a_long_buffer(dev):
+    """One 600,000-sample buffer of positive samples at stride 1, w = 512
+    (tests/test_long_buffer_precision.py:20-36): P, R1 and R2 of the
+    kernel and of the plain version within a relative 1e-4 of float64
+    sums."""
+    T, half = 600_000, 256
+    x = (np.random.default_rng(1).standard_normal(T).astype(np.float32)
+         + 0.5) ** 2
+    x64 = x.astype(np.float64)
+    ones = np.ones(half)
+    e = np.convolve(x64 * x64, ones, mode="valid")
+    refs = (np.convolve(x64[:-half] * x64[half:], ones, mode="valid"),
+            e[:T - 2 * half + 1], e[half:])
+    a = torch.from_numpy(x).to(dev).to(torch.complex64)[None]
+    for fn in (cuda_sc.sc_windows_cuda, TSW.sc_windows_plain):
+        outs = fn(a, half, 1, 0, T - 2 * half + 1)
+        for o, r in zip(outs, refs):
+            rel = np.abs(o[0].real.double().cpu().numpy() - r) / r
+            assert float(rel.max()) < 1e-4, fn.__name__
 
 
 @pytest.mark.parametrize("B", [1, 7])
@@ -663,7 +689,7 @@ def _cox_buffers(dev, B, snr_db=17.0, cfo=0.0, seed=5):
 
 
 def test_detection_through_the_kernel_equals_plain(dev, monkeypatch):
-    _, rx = _cox_buffers(dev, 64)
+    _, rx = _cox_buffers(dev, 512)
     before = cuda_sc.launches
     det = TSC.detect_preamble(COX_CFG, rx, with_deep=True)
     assert cuda_sc.launches == before + 1
@@ -765,7 +791,8 @@ def test_decimation_on_the_card_is_float32(dev):
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
 
 
-DECIMATE_SHAPES = [(64, 83808), (3, 20003), (1, 262144), (2, 100)]
+DECIMATE_SHAPES = [(2048, 83808), (64, 83808), (3, 20003), (1, 262144),
+                   (2, 100)]
 
 
 def _decimate_both(x):
@@ -785,9 +812,9 @@ def _normals(dev, B, T, seed):
 @pytest.mark.parametrize("B,T", DECIMATE_SHAPES)
 def test_decimation_kernel_equals_plain(dev, B, T):
     """The kernel against cuDNN's conv path on the same card tensor: the
-    acquired cell's rows, ragged rows with unaligned starts, the engine's
-    B = 1 view and rows shorter than the filter; float32 rounding apart
-    (the two sum the 128 products in other orders)."""
+    acquired cell's batch and rows, ragged rows with unaligned starts, the
+    engine's B = 1 view and rows shorter than the filter; float32 rounding
+    apart (the two sum the 128 products in other orders)."""
     got, want = _decimate_both(_normals(dev, B, T, B + T))
     assert got.dtype == torch.complex64
     assert got.shape == want.shape == (B, -(-T // 8))
@@ -805,7 +832,7 @@ def test_decimation_kernel_on_chirp_buffers_and_views(dev):
             <= 1e-6 * float(want.abs().max())
 
 
-@pytest.mark.parametrize("B,T", [(64, 83808), (3, 20003)])
+@pytest.mark.parametrize("B,T", [(2048, 83808), (64, 83808), (3, 20003)])
 def test_decimation_kernel_bf16_equals_plain_bf16(dev, B, T):
     x = _normals(dev, B, T, 7 * T)
     with TC.bf16_mode():
@@ -840,7 +867,7 @@ def test_detection_launches_the_decimation_kernel_once(dev):
     assert cuda_decimate.launches == before + 2
 
 
-@pytest.mark.parametrize("B,T", DECIMATE_SHAPES + [(2048, 83808)])
+@pytest.mark.parametrize("B,T", DECIMATE_SHAPES)
 def test_decimation_kernel_plan(dev, B, T):
     plan = cuda_decimate.card_plan(B, T, dev)
     assert plan["library"] == {"blocks": plan["blocks"],
@@ -850,7 +877,7 @@ def test_decimation_kernel_plan(dev, B, T):
 
 
 def test_chirp_detection_on_the_card_equals_the_cpu(dev):
-    _, rx = _chirp_buffers(dev, 16, cfo=20.0)
+    _, rx = _chirp_buffers(dev, 64, cfo=20.0)
     det = TC.detect_dual_chirp(CC, rx)
     ref = TC.detect_dual_chirp(CC, rx.cpu())
     for key in DET_KEYS:
@@ -940,11 +967,13 @@ def test_watterson_with_on_the_card_equals_the_cpu(dev, preset):
 
 @pytest.mark.parametrize("stride,offset", [(1, 0), (1, 96), (8, 96)])
 def test_window_kernel_equals_plain_at_half_512(dev, stride, offset):
-    """The 1,024-FFT plans' half = 512 (nvis_mode, high_throughput)."""
-    a = _analytic_on(dev, 9, 15080, seed=stride)
-    G = (15080 - 2 * 512 - offset) // stride + 1
-    _assert_windows_close(a, 512, stride, offset, G)
-    _assert_windows_close(a, 512, stride, offset, min(G, 700))
+    """The 1,024-FFT plans' half = 512 (nvis_mode, high_throughput), at
+    B = 9 and at an NVIS buffer's B = 512."""
+    for B, seed in ((9, stride), (512, stride + 100)):
+        a = _analytic_on(dev, B, 15080, seed=seed)
+        G = (15080 - 2 * 512 - offset) // stride + 1
+        _assert_windows_close(a, 512, stride, offset, G)
+        _assert_windows_close(a, 512, stride, offset, min(G, 700))
 
 
 @pytest.mark.parametrize("rate,sigma", [(CodeRate.R3_4, 0.5),
@@ -1308,9 +1337,11 @@ def test_dpsk_score_kernel_reads_a_strided_view(dev):
                                atol=0)
 
 
-# (L, B, O, row, sample), as tests/test_torch_dpsk_score.py's.
+# (L, B, O, row, sample), as tests/test_torch_dpsk_score.py's, and at the
+# DPSK ``medium`` path's batch.
 DPSK_NONFINITE = {"batch": (384, 3, 16_000, 1, 15_000),
-                  "engine": (768, 1, 40_000, 0, 35_000)}
+                  "engine": (768, 1, 40_000, 0, 35_000),
+                  "medium": (768, 256, 119_808, 3, 50_000)}
 
 
 @pytest.mark.parametrize("kind", ["nan", "inf"])

@@ -312,12 +312,3 @@ def test_tile_for(B, L, O, tile):
     K = -(-O // L)
     tiles = -(-K // tile)
     assert tile <= cuda_dpsk.MAX_TILE and (tiles - 1) * tile < K
-
-
-def test_nvcc_command_targets_hopper_without_fused_sums():
-    cmd = cuda_dpsk.nvcc_command("nvcc", cuda_dpsk.SOURCE,
-                                 cuda_dpsk.cuda_build.BUILD_DIR / "lib.so")
-    assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
-    assert "--fmad=false" in cmd and "--use_fast_math" not in cmd
-    assert cuda_dpsk.SOURCE.is_file()
-    assert cuda_dpsk.SOURCE.name == "dpsk_score.cu"

@@ -347,13 +347,6 @@ def test_window_kernel_wrapper_refuses_cpu_tensors():
         cuda_sc.sc_windows_cuda(a, 256, 8, 48, 10)
 
 
-def test_window_kernel_nvcc_command_targets_hopper():
-    cmd = cuda_sc.nvcc_command("nvcc", cuda_sc.SOURCE, cuda_sc.cuda_build
-                               .BUILD_DIR / "lib.so")
-    assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
-    assert cuda_sc.SOURCE.is_file() and cuda_sc.SOURCE.name == "sc_windows.cu"
-
-
 @pytest.mark.parametrize("T,view", [(3000, False), (3001, False),
                                     (3001, True), (2999, True)])
 def test_window_kernel_row_layout(T, view):

@@ -78,7 +78,7 @@ def main() -> int:
         cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         variant.write_text(source.replace(SOURCE_FORM, form))
         cuda_dpsk.LIBRARY = cuda_build.KernelLibrary(
-            variant, cuda_dpsk.FLAGS, cuda_dpsk._bind)
+            "dpsk_score", variant, cuda_dpsk.FLAGS, cuda_dpsk._bind)
         for preset, cfg, rx, (corr, L, n_sym, O) in cases:
             args = (corr, L, n_sym, O, CS.DP.EXPECTED_SIGNS,
                     CS.DP.MIN_SYMBOL_ENERGY)

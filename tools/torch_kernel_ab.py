@@ -41,10 +41,11 @@ timed in ``--pairs`` pairs of turns, earlier then current in even pairs
 and current then earlier in odd ones; a turn is the kernel's mean device
 time per launch under ``torch.profiler`` (``chip_smoke.device_ms``).  Each
 shape prints both medians, the range of the per-pair ratios, the pairs
-the current kernel won, its bound (as ``chip_smoke.py`` counts it), each
-version's share of the bound, each version's registers per thread and
-spills (``ptxas -v`` of its build) and dynamic shared bytes per block, and
-for windows the current launch's plan (tile, items, blocks, ring stages).
+the current kernel won, its bound (``benchmark/yardstick.py``'s, on the
+shape's own data), each version's share of the bound, each version's
+registers per thread and spills (``ptxas -v`` of its build) and dynamic
+shared bytes per block, and for windows the current launch's plan (tile,
+items, blocks, ring stages).
 The last line is a JSON object with every row.
 """
 
@@ -66,6 +67,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as S  # noqa: E402
+from benchmark import yardstick  # noqa: E402
 from projectultra_tpu_torch import CodeRate  # noqa: E402
 from projectultra_tpu_torch.modem.engine import ModemEngine  # noqa: E402
 from projectultra_tpu_torch import ops as current_ops  # noqa: E402
@@ -219,9 +221,8 @@ def main() -> None:
             S.require(all(torch.equal(x, y) for x, y in zip(new, ref)),
                       f"the two LDPC kernels disagree on {label} "
                       f"({dtype})")
-            bound_ms, by, passes = S.ldpc_bound(
-                graph, S.ldpc_passes(graph, llrs, trap_escape,
-                                     msg_dtype=dtype))
+            bound_ms, by, passes = S.ldpc_run_bound(graph, llrs, trap_escape,
+                                                    dtype)
             earlier, current = pairs_of_turns(
                 lambda: old.ops.cuda_ldpc.decode_cuda(old_graph, llrs, **kw),
                 lambda: cuda_ldpc.decode_cuda(graph, llrs, **kw), args.pairs,
@@ -245,7 +246,7 @@ def main() -> None:
                                          atol=S.WINDOW_ATOL).all())
                       for x, y in zip(new, ref)),
                   f"the two window kernels disagree on {label}")
-        bound_ms, by = S.sc_bound(a.shape[0], half, stride, G)
+        bound_ms, by = yardstick.sc_bound(a.shape[0], half, stride, G)
         earlier, current = pairs_of_turns(
             lambda: old.ops.cuda_sc.sc_windows_cuda(a, half, stride, offset,
                                                     G),
