@@ -92,12 +92,13 @@ Phases:
    source, started together) and prints ptxas's reports;
 3. holds TX on the card against the reference golden waveform;
 4. runs the slice-1 path: decode rate >= 0.99 with exact info bits on
-   every decoded frame, the LDPC kernel's launch counter grown, and the
-   kernel equal to the plain decoder on the same LLRs; times the kernel
+   every decoded frame, the LDPC kernel's launch counter grown, the AWGN
+   kernel's by one (its channel), and the LDPC kernel equal to the plain decoder on the same LLRs; times the kernel
    against the plain decoder on those LLRs and on the sigma 0.62
    waterfall batch (its rate is the ``ofdm_chirp-presynced-17db`` cell's);
 5. runs the Cox path: ok rate >= 0.99 with exact info bits on ok lanes
-   over 32 buffers, the four kernels' launch counters grown (the
+   over 32 buffers, the four kernels' launch counters grown and the AWGN
+   kernel's by one a buffer (the
    pilot-tracking kernel's once a symbol at each replay of the scan's
    CUDA graph, the LTS timing kernel's once a detection), a 30 Hz CFO
    buffer at 20 dB by the same gate, and 64 lanes equal to the CPU path;
@@ -113,10 +114,17 @@ Phases:
    (``csrc/lts_timing.cu``) at the cell's B = 2,048 and the engine's B = 1
    view against the plain FFT matched filter (positions equal, lts_corr
    within 1e-5) and the kernel's bound (9.0 GFLOP, 0.134 ms at the
-   cell);
+   cell); then the AWGN channel kernel (``csrc/awgn_active.cu``,
+   ``phase_awgn``) at the presynced cells' B = 16,384 x 7,332, the Cox
+   cell's 2,048 x 18,856, the acquired cell's 2,048 x 83,808 and the
+   engine's B = 1 view of 262,144 samples: one launch an
+   ``add_noise_active``, one output held to the plain version's (NaN and
+   infinities alike, finite outputs within 1e-5 of |want - x| = std * |n|
+   plus one ulp),
+   timed beside it and its 3-pass byte bound (the 4-pass one printed);
 6. runs the chirp cell: ok rate >= 0.99 with exact info bits on ok lanes
    over 32 buffers, the LDPC kernel's launch counter grown and the
-   decimation kernel's by one a buffer, 64 lanes equal to the CPU path;
+   decimation and AWGN kernels' by one a buffer, 64 lanes equal to the CPU path;
    holds the decimation kernel (``csrc/chirp_decimate.cu``) within 1e-6
    of the peak to the plain conv path and times both beside its bound at
    the acquired benchmark cell's B = 2,048 x T = 83,808 and at the
@@ -315,9 +323,9 @@ from projectultra_tpu_torch.ofdm import delay_fit as DF
 from projectultra_tpu_torch.ofdm import demodulator as D
 from projectultra_tpu_torch.ofdm import modulator as M
 from projectultra_tpu_torch.ofdm import pipeline as P
-from projectultra_tpu_torch.ops import (cuda_build, cuda_decimate,
-                                        cuda_dpsk, cuda_ldpc, cuda_lts,
-                                        cuda_sc, cuda_track)
+from projectultra_tpu_torch.ops import (cuda_awgn, cuda_build,
+                                        cuda_decimate, cuda_dpsk, cuda_ldpc,
+                                        cuda_lts, cuda_sc, cuda_track)
 from projectultra_tpu_torch.ops import dpsk_score as DS
 from projectultra_tpu_torch.ops import ldpc as ldpc_ops
 from projectultra_tpu_torch.ops.sc_windows import sc_windows_plain
@@ -378,6 +386,11 @@ KERNELS = {  # name -> (wrapper module, TPU kernel it replaces)
     "lts_timing": (cuda_lts,
                    "projectultra_tpu/sync/schmidl_cox.py::detect_preamble "
                    "LTS matched filter and masked argmax (XLA FFTs)"),
+    # The harness AWGN channel at each frame's active power: one XLA fusion
+    # in the JAX package, 14 eager operators in the plain version.
+    "awgn_active": (cuda_awgn,
+                    "projectultra_tpu/sim/watterson.py::add_noise_active "
+                    "(an XLA fusion)"),
 }
 BF16 = torch.bfloat16
 
@@ -396,6 +409,7 @@ DECIMATE_PEAK_RTOL = 1e-6   # max abs difference over the plain peak
 LTS_CORR_ATOL = 1e-5        # lts_corr, a normalised correlation in [0, 1]
 TRACK_LLR_ATOL = 2e-3       # the tracking kernel's LLRs, signs equal
 DPSK_SCORE_ATOL = 2e-6      # scores lie in [0, 1]
+AWGN_STD_RTOL = 1e-5        # of std * |n|, plus one ulp of the output
 
 MC = MCP.level10()       # the ModemEngine default, as the JAX bench runs
 CC = MC.chirp_config()
@@ -534,6 +548,14 @@ def lts_bound(B: int, P: int, L: int):
                            B * P * L * 4)
 
 
+def awgn_bound(B: int, T: int, passes: int = 3):
+    """The channel's bound: the samples and the noise read once and the
+    output written once, 4 bytes a sample each (``passes`` 4: the samples
+    read twice); 6 float32 operations a sample (the magnitude, the
+    compare, the square, its sum, the scaled noise, its sum)."""
+    return yardstick.bound(passes * 4 * B * T, 6 * B * T)
+
+
 #: (kernel, shape, kernel ms, bound ms, basis) of every timed shape.
 SHAPES: list = []
 
@@ -545,7 +567,8 @@ KERNEL_EVENT = yardstick.KERNEL_EVENT | {
     "ldpc_minsum_bf16": "ldpc_minsum_kernel",
     "chirp_decimate": "chirp_decimate_kernel",
     "pilot_track": "pilot_track_kernel",
-    "lts_timing": "lts_timing_kernel"}
+    "lts_timing": "lts_timing_kernel",
+    "awgn_active": "awgn_"}
 
 
 def report_shape(name: str, shape: str, fn, reps: int, bound_ms: float,
@@ -745,8 +768,8 @@ def phase_tx_golden(dev: torch.device) -> None:
 
 def phase_main_path(dev: torch.device):
     """The main path at BATCH frames, and the kernel lane-exact with the
-    plain decoder on its LLRs; returns (kernel launches in the run,
-    deinterleaved LLRs of its noisy frames)."""
+    plain decoder on its LLRs; returns (the LDPC and AWGN kernels' launches
+    in the run, deinterleaved LLRs of its noisy frames)."""
     code = get_code(RATE)
     g_info = torch.Generator(device=dev).manual_seed(0)
     g_noise = torch.Generator(device=dev).manual_seed(1)
@@ -754,12 +777,13 @@ def phase_main_path(dev: torch.device):
                          dtype=torch.uint8)
     torch.cuda.synchronize()
 
-    cuda_ldpc.launches = 0
+    cuda_ldpc.launches = cuda_awgn.launches = 0
     tx = P.tx_frame(CFG, MOD, RATE, info)
     rx_in = W.add_noise_active(tx, SNR_DB, g_noise)
     out, ok, iters = P.rx_frame(CFG, MOD, RATE, rx_in)
     torch.cuda.synchronize()
-    launches = cuda_ldpc.launches
+    launches = {"ldpc_minsum": cuda_ldpc.launches,
+                "awgn_active": cuda_awgn.launches}
 
     T = P.frame_samples(CFG, MOD)
     require(tuple(tx.shape) == (BATCH, T) and tx.dtype == torch.float32,
@@ -773,7 +797,10 @@ def phase_main_path(dev: torch.device):
           f"bits_exact_on_ok={bits_exact} "
           f"mean_iters={float(iters.float().mean())!r} "
           f"kernel_launches={launches}", flush=True)
-    require(launches > 0, "the main path did not launch the LDPC kernel")
+    require(launches["ldpc_minsum"] > 0,
+            "the main path did not launch the LDPC kernel")
+    require(launches["awgn_active"] == 1, "the main path's channel launched "
+            f"the AWGN kernel {launches['awgn_active']} times, not once")
     require(ok_rate >= DECODE_GATE, f"decode rate {ok_rate} < {DECODE_GATE}")
     require(bits_exact, "decoded info bits differ on a decoded frame")
 
@@ -868,8 +895,10 @@ def decode_cox(rx: torch.Tensor):
 
 def phase_cox_path(dev: torch.device) -> dict:
     """The Cox path over COX_BUFFERS fresh 17 dB buffers; returns each
-    kernel's launches in that run."""
+    kernel's launches in that run (the AWGN kernel's in making its
+    buffers)."""
     info, tx = cox_tx(dev, 11)
+    cuda_awgn.launches = 0
     rx_all = noisy_buffers(tx, torch.Generator(device=dev).manual_seed(13),
                            COX_BUFFERS)
     torch.cuda.synchronize()
@@ -882,11 +911,14 @@ def phase_cox_path(dev: torch.device) -> dict:
     launches = {"sc_windows": cuda_sc.launches,
                 "ldpc_minsum": cuda_ldpc.launches,
                 "pilot_track": cuda_track.launches,
-                "lts_timing": cuda_lts.launches}
+                "lts_timing": cuda_lts.launches,
+                "awgn_active": cuda_awgn.launches}
     print(f"Cox path kernel launches: {launches}, scan graph replays "
           f"{D.scan_replays - replays}", flush=True)
     require(all(n > 0 for n in launches.values()),
-            "the Cox path did not launch its four kernels")
+            "the Cox path did not launch its five kernels")
+    require(launches["awgn_active"] == COX_BUFFERS, "the Cox path's channel "
+            "did not go through the AWGN kernel, once a buffer")
     require(D.scan_replays > replays,
             "the Cox path did not replay the scan's graph")
     check_cox(outs, info, f"{SNR_DB} dB")
@@ -906,8 +938,11 @@ def phase_cox_path(dev: torch.device) -> dict:
 
     # A true 30 Hz CFO at 20 dB.
     g = torch.Generator(device=dev).manual_seed(17)
+    cuda_awgn.launches = 0
     rx = W.add_noise_active(W.apply_cfo_hilbert(tx, COX_CFO_HZ),
                             COX_CFO_SNR_DB, g)
+    require(cuda_awgn.launches == 1, "the CFO buffer's channel launched the "
+            f"AWGN kernel {cuda_awgn.launches} times, not once")
     res = decode_cox(rx)
     cfo = res[3]["cfo_hz"]
     print(f"Cox path with {COX_CFO_HZ} Hz CFO: detected cfo mean "
@@ -1129,6 +1164,86 @@ def phase_lts_timing(card: str, rx: torch.Tensor) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# The harness AWGN channel
+# ---------------------------------------------------------------------------
+
+def require_awgn_close(label: str, x: torch.Tensor, got: torch.Tensor,
+                       want: torch.Tensor) -> None:
+    """The kernel's output against the plain version's on the same samples x
+    (the card suite's tolerance): NaN and infinities alike, each finite
+    output within AWGN_STD_RTOL * |want - x| (the plain noise std * |n|, up
+    to rounding) plus one ulp of the output."""
+    fin = torch.isfinite(want)
+    alike = all(bool(torch.equal(kind(got), kind(want))) for kind in
+                (torch.isnan, torch.isposinf, torch.isneginf))
+    diff = (got - want).abs()[fin]
+    limit = (AWGN_STD_RTOL * (want - x).abs() + 2.0 ** -23 * want.abs())[fin]
+    # (an equal output counts 0 of its limit, also where the limit is 0)
+    err = torch.where(diff == 0, 0.0, diff / limit)
+    worst = float(err.max()) if err.numel() else 0.0
+    equal = float((got == want)[fin].float().mean())
+    print(f"AWGN kernel vs plain [{label}]: non-finite alike {alike}, worst "
+          f"difference {worst!r} of its limit, {equal!r} of the outputs "
+          f"equal", flush=True)
+    require(alike and worst <= 1.0, f"the AWGN kernel differs from the "
+            f"plain version ({label})")
+
+
+def phase_awgn(dev: torch.device, card: str) -> tuple:
+    """The channel kernel at the presynced cells' B = 16,384 x 7,332 (the
+    main path's TX), the Cox cell's 2,048 x 18,856 and the acquired cell's
+    2,048 x 83,808 (the bench's frames repeated) and the engine's B = 1
+    view of 262,144 samples: one launch an ``add_noise_active``, one
+    output of each side held to the plain version's, then timed beside it
+    (calls) and its 3-pass byte bound (device ms; the 4-pass bound
+    printed beside).  Returns the presynced (call ms, plain ms, bound ms,
+    basis)."""
+    info = torch.randint(0, 2, (BATCH, get_code(RATE).k), device=dev,
+                         dtype=torch.uint8,
+                         generator=torch.Generator(device=dev).manual_seed(50))
+    cox = cox_tx(dev, 51)[1].clone()  # (a TX graph replay's own buffer)
+    chirp = chirp_tx(dev, 52)[1]
+    view = torch.zeros((1, 262144), device=dev)
+    view[0, :13 * COX_T] = cox[:13].reshape(-1)
+    shapes = [("presynced cells", P.tx_frame(CFG, MOD, RATE, info)),
+              ("Cox cell", cox.repeat(2048 // COX_BATCH, 1)),
+              ("acquired cell", chirp.repeat(2048 // CHIRP_BATCH, 1)),
+              ("engine view", view)]
+    g = torch.Generator(device=dev).manual_seed(53)
+    rows = []
+    for label, x in shapes:
+        B, T = x.shape
+        cuda_awgn.launches = 0
+        W.add_noise_active(x, SNR_DB, g)
+        torch.cuda.synchronize()
+        require(cuda_awgn.launches == 1, f"add_noise_active launched the "
+                f"AWGN kernel {cuda_awgn.launches} times ({label})")
+        z = torch.randn(x.shape, generator=g, device=dev)
+        got, want = pair_outputs(
+            lambda: cuda_awgn.add_noise_cuda(x, SNR_DB, z),
+            lambda: W.add_noise_with_plain(x, SNR_DB, z))
+        require_awgn_close(label, x, got, want)
+        del got, want
+        k_ms, p_ms = time_pair(
+            lambda: cuda_awgn.add_noise_cuda(x, SNR_DB, z),
+            lambda: W.add_noise_with_plain(x, SNR_DB, z), 20, 5)
+        plan = cuda_awgn.card_plan(B, T, dev)
+        bound_ms, by = awgn_bound(B, T)
+        bound4_ms, _ = awgn_bound(B, T, 4)
+        print(f"AWGN [{label}] B={B} T={T}: kernel {k_ms!r} ms, plain (14 "
+              f"operations) {p_ms!r} ms a call (CUDA events) on {card}; "
+              f"bounds {bound_ms!r} ms (3 passes) / {bound4_ms!r} ms (4 "
+              f"passes); launch plan {plan}", flush=True)
+        report_shape("awgn_active", f"{label}, B={B}, T={T}, "
+                     f"{plan['regime']} regime, 3-pass bound",
+                     lambda: cuda_awgn.add_noise_cuda(x, SNR_DB, z), 20,
+                     bound_ms, by, card)
+        rows.append((k_ms, p_ms, bound_ms, by))
+        del z
+    return rows[0]
+
+
+# ---------------------------------------------------------------------------
 # Slice 3: chirp acquisition, MC-DPSK, OFDM behind a chirp, fading
 # ---------------------------------------------------------------------------
 
@@ -1181,6 +1296,7 @@ def phase_chirp_path(dev: torch.device) -> tuple:
     """The chirp cell over CHIRP_BUFFERS fresh 5 dB buffers; returns the
     first buffer and the decimation kernel's launches."""
     info, tx = chirp_tx(dev, 31)
+    cuda_awgn.launches = 0
     rx_all = noisy_buffers(tx, torch.Generator(device=dev).manual_seed(33),
                            CHIRP_BUFFERS, CHIRP_SNR_DB)
     torch.cuda.synchronize()
@@ -1189,10 +1305,13 @@ def phase_chirp_path(dev: torch.device) -> tuple:
     outs = [decode_chirp(rx) for rx in rx_all]
     torch.cuda.synchronize()
     launches = {"ldpc_minsum": cuda_ldpc.launches,
-                "chirp_decimate": cuda_decimate.launches}
+                "chirp_decimate": cuda_decimate.launches,
+                "awgn_active": cuda_awgn.launches}
     print(f"chirp path kernel launches: {launches}", flush=True)
     require(launches["ldpc_minsum"] > 0,
             "the chirp path did not launch the LDPC kernel")
+    require(launches["awgn_active"] == CHIRP_BUFFERS, "the chirp path's "
+            "channel did not go through the AWGN kernel, once a buffer")
     require(launches["chirp_decimate"] == CHIRP_BUFFERS,
             "the chirp path did not decimate through the kernel, once a "
             "buffer")
@@ -3570,7 +3689,7 @@ def main() -> None:
 
     phase_build()
     phase_tx_golden(dev)
-    ldpc_launches, deint = phase_main_path(dev)
+    main_launches, deint = phase_main_path(dev)
     ldpc_ms, ldpc_plain_ms, ldpc_bound_ms, ldpc_by = phase_timing(dev, card,
                                                                   deint)
     bf16_row = phase_bf16(dev, card, deint)
@@ -3583,6 +3702,7 @@ def main() -> None:
         tx, torch.Generator(device=dev).manual_seed(21), 1)[0])
     lts_row = phase_lts_timing(card, noisy_buffers(
         tx, torch.Generator(device=dev).manual_seed(22), 1)[0])
+    awgn_row = phase_awgn(dev, card)
 
     rx, decimate_launches = phase_chirp_path(dev)
     decimate_row = phase_chirp_decimation(card, rx)
@@ -3624,17 +3744,20 @@ def main() -> None:
     # acquired benchmark cell's shape; the pilot-tracking kernel's in the
     # Cox path, ms and bound_ms one symbol at the Cox benchmark cell's
     # shape; the LTS timing kernel's in the Cox path, ms and bound_ms one
-    # gate set at the Cox cell's shape).  ms and bound_ms at
-    # that path's shape; no single PyTorch call computes any of the seven
-    # (library_ms null).
-    rows = [("ldpc_minsum", ldpc_launches, ldpc_ms, ldpc_plain_ms,
+    # gate set at the Cox cell's shape; the AWGN kernel's in the slice-1
+    # path's channel, ms and bound_ms at the presynced cells' shape).  ms
+    # and bound_ms at that path's shape; no single PyTorch call computes any
+    # of the eight (library_ms null).
+    rows = [("ldpc_minsum", main_launches["ldpc_minsum"], ldpc_ms,
+             ldpc_plain_ms,
              ldpc_bound_ms, ldpc_by),
             ("sc_windows", cox_launches["sc_windows"], sc_ms, sc_plain_ms,
              sc_bound_ms, sc_by),
             ("ldpc_minsum_bf16", *bf16_row), ("dpsk_score", *dpsk_row),
             ("chirp_decimate", decimate_launches, *decimate_row),
             ("pilot_track", cox_launches["pilot_track"], *track_row),
-            ("lts_timing", cox_launches["lts_timing"], *lts_row)]
+            ("lts_timing", cox_launches["lts_timing"], *lts_row),
+            ("awgn_active", main_launches["awgn_active"], *awgn_row)]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source_of(name),
          "replaces": KERNELS[name][1], "launches": launches, "ms": ms,

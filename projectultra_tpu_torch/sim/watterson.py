@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops import cuda_awgn
 from ..ops import mixer as mixer_ops
 from ..utils import metrics
 
@@ -241,17 +242,28 @@ def seeded_generator(device, *ints: int) -> torch.Generator:
 def add_noise_with(samples: torch.Tensor, snr_db,
                    noise: torch.Tensor) -> torch.Tensor:
     """samples + noise_std * noise, with the signal power measured over
-    active samples only (|s| > 1e-6), per frame along the last axis."""
+    active samples only (|s| > 1e-6), per frame along the last axis: on a
+    CUDA tensor one launch of the hand-written kernel
+    (``ops/cuda_awgn.add_noise_cuda``), elsewhere ``add_noise_with_plain``."""
     with metrics.span("noise.awgn", samples):
-        active = samples.abs() > 1e-6
-        power = torch.where(active, samples * samples, 0.0).sum(-1) \
-            / torch.clamp(active.sum(-1), min=1)
-        # A scalar SNR stays a host scalar: copying it to the device would
-        # synchronise the stream.
-        snr_lin = 10.0 ** (torch.as_tensor(snr_db, dtype=torch.float32)
-                           / 10.0)
-        noise_std = torch.sqrt(power / snr_lin)
-        return samples + noise_std[..., None] * noise
+        if samples.is_cuda:
+            return cuda_awgn.add_noise_cuda(samples, snr_db, noise)
+        return add_noise_with_plain(samples, snr_db, noise)
+
+
+def add_noise_with_plain(samples: torch.Tensor, snr_db,
+                         noise: torch.Tensor) -> torch.Tensor:
+    """``add_noise_with`` in PyTorch's operations: the CPU path and the
+    kernel's oracle on the card."""
+    active = samples.abs() > 1e-6
+    power = torch.where(active, samples * samples, 0.0).sum(-1) \
+        / torch.clamp(active.sum(-1), min=1)
+    # A scalar SNR stays a host scalar: copying it to the device would
+    # synchronise the stream.
+    snr_lin = 10.0 ** (torch.as_tensor(snr_db, dtype=torch.float32)
+                       / 10.0)
+    noise_std = torch.sqrt(power / snr_lin)
+    return samples + noise_std[..., None] * noise
 
 
 def add_noise_active(samples: torch.Tensor, snr_db,

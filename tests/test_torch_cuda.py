@@ -116,6 +116,19 @@ NaN); at given sync_offs whose windows are clipped or empty; on strided
 and one-row views; one launch a gate set and none on the CPU; its launch
 plan as the library computes it; its wrapper's checks.  The Cox step goes
 through it without a synchronisation.
+
+The AWGN channel kernel (``csrc/awgn_active.cu``) against
+``sim/watterson.add_noise_with_plain`` on the same card tensors: NaN, +inf
+and -inf exactly where the plain version has them, every finite output
+within 1e-5 of std * |n| plus one ulp of the output (the two sum a frame's
+power in other orders), two runs bitwise equal, one launch a call, at the
+cells' shapes (16,384 x 7,332, 2,048 x 18,856, 2,048 x 83,808), 1-D
+buffers of 262,144 and 2,000,000 samples, T = 1 (bit for bit) and 7,
+empty batches, leading axes, row- and column-strided views, per-frame SNRs
+on the card, zero and sub-threshold rows, NaN and infinite samples and an
+infinite noise value in each regime; the regimes against each other at a
+shape all can take; its launch plan as the library computes it; no
+synchronisation; its wrapper's checks.
 """
 
 import os
@@ -130,8 +143,9 @@ from projectultra_tpu_torch.config import (CodeRate, ModemConfig,  # noqa: E402
                                            Modulation)
 from projectultra_tpu_torch.fec import ldpc  # noqa: E402
 from projectultra_tpu_torch.ofdm import pipeline as TP  # noqa: E402
-from projectultra_tpu_torch.ops import (cuda_decimate, cuda_dpsk,  # noqa: E402
-                                        cuda_ldpc, cuda_lts, cuda_sc)
+from projectultra_tpu_torch.ops import (cuda_awgn, cuda_build,  # noqa: E402
+                                        cuda_decimate, cuda_dpsk, cuda_ldpc,
+                                        cuda_lts, cuda_sc)
 from projectultra_tpu_torch.ops import dpsk_score as TDS  # noqa: E402
 from projectultra_tpu_torch.ops import ldpc as T  # noqa: E402
 from projectultra_tpu_torch.ops import sc_windows as TSW  # noqa: E402
@@ -1999,3 +2013,183 @@ def test_lts_kernel_wrapper_checks_its_inputs(dev):
         cuda_lts.lts_timing_cuda(COX_CFG, rx[:, :500], offs, X[:, 0])
     with pytest.raises(ValueError):
         cuda_lts.lts_timing_cuda(COX_CFG, rx, offs, X[:1, 0])
+
+
+# ---------------------------------------------------------------------------
+# The AWGN channel kernel (csrc/awgn_active.cu)
+# ---------------------------------------------------------------------------
+
+#: A finite output of the kernel against the plain version's: the two sum a
+#: frame's power in other orders, so its `std` may differ in the last bits,
+#: which moves std * |n| by far less than 1e-5 of itself; and the output's
+#: own rounding (s + std * n) may then land one ulp of |y| apart.
+AWGN_STD_RTOL = 1e-5
+AWGN_ULP = 2.0 ** -23
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int32)
+
+
+def _awgn_inputs(dev, shape, seed, lead=0, tail=0):
+    """Samples of 0.3 sigma (zero for ``lead`` and ``tail`` samples of each
+    row, as a frame's buffer) and standard normals, on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = 0.3 * torch.randn(shape, generator=g, device=dev)
+    x[..., :lead] = 0.0
+    x[..., x.shape[-1] - tail:] = 0.0
+    return x, torch.randn(shape, generator=g, device=dev)
+
+
+def _assert_awgn_equals_plain(x, snr_db, z):
+    """The kernel (through ``add_noise_with``) twice and the plain version
+    once on the same card tensors: the two runs bitwise equal; NaN, +inf and
+    -inf exactly where the plain version has them; each finite output
+    within AWGN_STD_RTOL * |want - x| (the plain noise std * |n|, up to
+    rounding) plus one ulp of the plain output; one launch a call (none for
+    an empty batch)."""
+    before = cuda_awgn.launches
+    runs = [TW.add_noise_with(x, snr_db, z) for _ in range(2)]
+    assert cuda_awgn.launches == before + (2 if x.numel() else 0)
+    want = TW.add_noise_with_plain(x, snr_db, z)
+    got = runs[0]
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.equal(_bits(got), _bits(runs[1]))
+    for kind in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(kind(got), kind(want))
+    fin = torch.isfinite(want)
+    limit = AWGN_STD_RTOL * (want - x).abs() + AWGN_ULP * want.abs()
+    assert bool(((got - want).abs()[fin] <= limit[fin]).all())
+    return got, want
+
+
+@pytest.mark.parametrize("B,T,lead,tail", [
+    (16384, 7332, 0, 0),       # the presynced cells
+    (2048, 18856, 1504, 1024),  # the Cox cell: zeros before and after
+    (2048, 83808, 0, 0),       # the acquired cell
+])
+def test_awgn_kernel_at_the_cells(dev, B, T, lead, tail):
+    x, z = _awgn_inputs(dev, (B, T), B + T, lead, tail)
+    _assert_awgn_equals_plain(x, 17.0, z)
+
+
+@pytest.mark.parametrize("shape", [(262144,), (2000000,), (64, 1), (64, 7),
+                                   (0, 7332), (5, 0), (3, 4, 7332),
+                                   (3, 24577), (2, 196612)])
+def test_awgn_kernel_at_edge_shapes(dev, shape):
+    """1-D engine and tool buffers (the stream regime), one and seven
+    samples a row, empty batches, leading axes, the first cluster shape
+    and the first stream shape past a cluster."""
+    x, z = _awgn_inputs(dev, shape, 31)
+    got, want = _assert_awgn_equals_plain(x, 5.0, z)
+    if shape[-1] == 1:  # no sum order to differ: bit for bit
+        assert torch.equal(_bits(got), _bits(want))
+
+
+def test_awgn_kernel_reads_views(dev):
+    """Row-strided views of wider buffers (noise at another offset and
+    stride), a one-row view and a column-strided view (copied first)."""
+    wide, zw = _awgn_inputs(dev, (6, 7400), 32)
+    x, z = wide[:, 5:5 + 7332], zw[:, 3:3 + 7332]
+    _assert_awgn_equals_plain(x, 17.0, z)
+    _assert_awgn_equals_plain(x[2:3], 17.0, z[2:3])
+    t, zt = _awgn_inputs(dev, (7332, 6), 33)
+    _assert_awgn_equals_plain(t.T, 17.0, zt.T)
+
+
+@pytest.mark.parametrize("snr", ["vector", "column", "device scalar"])
+def test_awgn_kernel_at_a_per_frame_snr(dev, snr):
+    """SNR tensors on the card (the sweeps' and tools' per-point SNRs),
+    broadcast to the frames."""
+    x, z = _awgn_inputs(dev, (2, 8, 7332), 34)
+    if snr == "vector":
+        snr_db = torch.linspace(-5.0, 20.0, 8, device=dev)
+    elif snr == "column":
+        snr_db = torch.tensor([[3.0], [11.0]], device=dev)
+    else:
+        snr_db = torch.tensor(7.5, device=dev)
+    _assert_awgn_equals_plain(x, snr_db, z)
+
+
+@pytest.mark.parametrize("regime", ["row", "cluster", "stream"])
+def test_awgn_kernel_at_odd_rows(dev, regime):
+    """Zero rows, rows of sub-threshold samples only, NaN, +inf and -inf
+    samples and an infinite noise value, at the cells' row lengths (one
+    per regime): non-finite exactly where the plain version is."""
+    T = {"row": 7332, "cluster": 83808, "stream": 262144}[regime]
+    x, z = _awgn_inputs(dev, (8, T), 35)
+    x[0] = 0.0
+    x[1] = 1e-6 * torch.sign(x[1])
+    x[2, 100] = float("nan")
+    x[3, T - 1] = float("inf")
+    x[4, T // 2] = float("-inf")
+    z[5, 17] = float("inf")
+    z[0, 3] = float("-inf")
+    assert cuda_awgn.launch_plan(8, T)["regime"] == regime
+    got, _ = _assert_awgn_equals_plain(x, 17.0, z)
+    assert torch.equal(got[1], x[1])
+    assert torch.isnan(got[0, 3]) and torch.equal(got[0, 4:], x[0, 4:])
+
+
+@pytest.mark.parametrize("T", [20000, 98305])
+def test_awgn_kernel_regimes_agree(dev, monkeypatch, T):
+    """Each regime that can take a row length (``launch_plan`` replaced by
+    its ``regime_plan``) against the plain version."""
+    x, z = _awgn_inputs(dev, (64, T), 36)
+    for regime in ("row", "cluster", "stream"):
+        plan = cuda_awgn.regime_plan(regime, 64, T)
+        if plan["slice"] > cuda_awgn.MAX_SLICE:
+            continue
+        monkeypatch.setattr(cuda_awgn, "launch_plan",
+                            lambda B, T, plan=plan: plan)
+        _assert_awgn_equals_plain(x, 9.0, z)
+
+
+def test_awgn_kernel_plan(dev):
+    """The launch plan as the library computes it: the plan's blocks (the
+    resident grid for the stream regime), threads and shared bytes, and
+    blocks resident on every SM."""
+    for B, T in ((16384, 7332), (2048, 18856), (2048, 83808),
+                 (1, 262144), (1, 2000000), (3, 1)):
+        plan = cuda_awgn.card_plan(B, T, dev)
+        lib = plan["library"]
+        assert lib["threads"] == plan["threads"]
+        assert lib["shared_bytes"] == plan["shared_bytes"]
+        if plan["regime"] == "stream":
+            assert lib["blocks"] == min(plan["items"], plan["blocks_per_sm"]
+                                        * cuda_build.sm_count(dev))
+        else:
+            assert lib["blocks"] == plan["blocks"]
+        assert plan["blocks_per_sm"] >= 1
+
+
+def test_awgn_kernel_never_synchronises(dev):
+    """add_noise_with on the card enqueues without a host-device
+    synchronisation, at a host SNR and at per-frame SNRs on the card, in
+    each regime."""
+    snr_vec = torch.linspace(0.0, 10.0, 4, device=dev)
+    g = torch.Generator(device=dev).manual_seed(37)
+    cases = [_awgn_inputs(dev, (4, T), 37) for T in (7332, 83808, 262144)]
+    for x, z in cases:
+        TW.add_noise_with(x, 17.0, z)
+        TW.add_noise_with(x, snr_vec, z)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for x, z in cases:
+            TW.add_noise_with(x, 17.0, z)
+            TW.add_noise_with(x, snr_vec, z)
+            TW.add_noise_active(x, 17.0, g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_awgn_kernel_wrapper_checks_its_inputs(dev):
+    x, z = _awgn_inputs(dev, (3, 100), 38)
+    for args in ((x.double(), 17.0, z.double()),
+                 (x.to(torch.complex64), 17.0, z.to(torch.complex64)),
+                 (x, 17.0, z.cpu()), (x, 17.0, z[:, :99]),
+                 (x, torch.tensor([1.0, 2.0, 3.0]), z)):
+        with pytest.raises(ValueError):
+            cuda_awgn.add_noise_cuda(*args)

@@ -16,9 +16,9 @@ import types
 import pytest
 import torch
 
-from projectultra_tpu_torch.ops import (cuda_build, cuda_decimate,
-                                        cuda_dpsk, cuda_ldpc, cuda_lts,
-                                        cuda_sc, cuda_track)
+from projectultra_tpu_torch.ops import (cuda_awgn, cuda_build,
+                                        cuda_decimate, cuda_dpsk, cuda_ldpc,
+                                        cuda_lts, cuda_sc, cuda_track)
 
 torch.set_num_threads(2)
 
@@ -30,6 +30,7 @@ KERNELS = {
     "decimate": (cuda_decimate, "chirp_decimate.cu", ()),
     "lts": (cuda_lts, "lts_timing.cu", ()),
     "track": (cuda_track, "pilot_track.cu", ()),
+    "awgn": (cuda_awgn, "awgn_active.cu", ()),
 }
 
 

@@ -5,7 +5,7 @@ the repo, on one card, at the shapes ``chip_smoke.py`` gives them.
     mkdir -p chip_checkout/base
     git archive <commit> | tar -x -C chip_checkout/base
     python3 tools/torch_kernel_ab.py chip_checkout/base [--pairs 10] \
-        [--msg bf16|f32|both] [--kernels all|ldpc|windows]
+        [--msg bf16|f32|both] [--kernels all|ldpc|windows|awgn]
 
 The earlier checkout's port package is imported under another name
 (``earlier_port``), so each version runs through its own wrappers and
@@ -29,7 +29,19 @@ buffer at half 512, stride 8 (B = 512, T = 15,080), the engine's search
 view (B = 1, T = 262,144) and ``test_sync_robustness``'s whole-frame
 searches (B = 10, T = 39,936), both at stride 8; all but the Cox buffer
 are seeded noise (the kernel's time does not depend on the values).
-``--kernels`` picks the LDPC rows, the window rows or both.
+The AWGN channel's shapes: the presynced cells' B = 16,384 x 7,332, the
+Cox cell's 2,048 x 18,856, the acquired cell's 2,048 x 83,808 and the
+engine's B = 1 view of 262,144 samples (seeded normals; the time does not
+depend on the values), each version through its own
+``sim.watterson.add_noise_with`` (a checkout before the kernel runs the
+plain version's 14 operations there): a turn is the device busy time a
+call (``chip_smoke.profile_busy_ms``), the bound the 3-pass one (the
+4-pass one printed beside), the outputs within the card suite's tolerance
+of each other (1e-5 of std * |n| plus one ulp); where the rule takes the
+cluster regime (the acquired cell) the current kernel is also timed
+streaming the rows twice, the design's A/B.
+``--kernels`` picks the LDPC rows, the window rows, the AWGN rows or
+all.
 ``--tiles 128,256,512`` also times the current window kernel at each
 window shape with ``cuda_sc.tile_for`` replaced by each of those tiles
 (and the rule's own pick), in turns forward and back: the measurements
@@ -90,7 +102,7 @@ def load_earlier(checkout: Path):
     sys.modules[EARLIER] = module
     spec.loader.exec_module(module)
     for name in ("ops.ldpc", "ops.cuda_build", "ops.cuda_ldpc",
-                 "ops.cuda_sc"):
+                 "ops.cuda_sc", "sim.watterson"):
         importlib.import_module(f"{EARLIER}.{name}")
     return module
 
@@ -153,14 +165,27 @@ def shared_bytes(ops, graph, msg_dtype) -> int:
 
 
 def pairs_of_turns(earlier_fn, current_fn, pairs: int, reps: int,
-                   kernel: str) -> tuple[list, list]:
-    """Per-pair device ms of each version, the order alternating."""
+                   kernel: str | None) -> tuple[list, list]:
+    """Per-pair device ms of each version, the order alternating: the
+    kernel's per launch, or (``kernel`` None) the device busy time a
+    call."""
     earlier, current = [], []
     for p in range(pairs):
         turns = [(earlier, earlier_fn), (current, current_fn)]
         for out, fn in (turns if p % 2 == 0 else turns[::-1]):
-            out.append(S.device_ms(fn, reps, kernel))
+            out.append(S.device_ms(fn, reps, kernel) if kernel else
+                       S.profile_busy_ms(fn, reps, rows=0))
     return earlier, current
+
+
+def awgn_usage(ops) -> dict | None:
+    """{regime kernel: (registers, spill store bytes, spill load bytes)} of
+    the AWGN library of ``ops``, None for a checkout without it."""
+    if not hasattr(ops, "cuda_awgn"):
+        return None
+    return ptxas_usage(ops, ops.cuda_awgn,
+                       lambda e: next((k for k in ("rows", "stream")
+                                       if f"awgn_{k}_kernel" in e), None))
 
 
 def row(kernel: str, label: str, B: int, earlier: list, current: list,
@@ -185,7 +210,8 @@ def main() -> None:
     parser.add_argument("--threads", type=int, choices=(256, 1024),
                         help="LDPC block size for both versions (default: "
                         "each version's block_threads_for)")
-    parser.add_argument("--kernels", choices=("all", "ldpc", "windows"),
+    parser.add_argument("--kernels",
+                        choices=("all", "ldpc", "windows", "awgn"),
                         default="all", help="the rows to time")
     parser.add_argument("--tiles", default="",
                         help="comma-separated window tiles to sweep")
@@ -351,11 +377,72 @@ def main() -> None:
             sc_row(f"{label} (noise), T={T}, stride 8, G={G}",
                    noise_signal(B, T, 42 + B), 8, S.CP, G, 50)
 
+    if args.kernels in ("all", "awgn"):
+        from projectultra_tpu_torch.ops import cuda_awgn
+        from projectultra_tpu_torch.sim import watterson as W
+        try:
+            importlib.import_module(f"{EARLIER}.ops.cuda_awgn")
+        except ImportError:
+            pass
+        regs = {"earlier": awgn_usage(old.ops),
+                "current": awgn_usage(current_ops)}
+        g = torch.Generator(device=dev).manual_seed(60)
+        for label, B, T, reps in (("presynced cells", S.BATCH, 7332, 10),
+                                  ("Cox cell", 2048, S.COX_T, 20),
+                                  ("acquired cell", 2048, S.CHIRP_T, 10),
+                                  ("engine view", 1, 262144, 50)):
+            x = 0.3 * torch.randn((B, T), generator=g, device=dev)
+            z = torch.randn((B, T), generator=g, device=dev)
+            ref, new = S.pair_outputs(
+                lambda: old.sim.watterson.add_noise_with(x, S.SNR_DB, z),
+                lambda: W.add_noise_with(x, S.SNR_DB, z))
+            S.require_awgn_close(f"{label}, earlier against current", x,
+                                 new, ref)
+            del ref, new
+            bound_ms, by = S.awgn_bound(B, T)
+            earlier, current = pairs_of_turns(
+                lambda: old.sim.watterson.add_noise_with(x, S.SNR_DB, z),
+                lambda: W.add_noise_with(x, S.SNR_DB, z), args.pairs, reps,
+                None)
+            plan = cuda_awgn.launch_plan(B, T)
+            extra = {}
+            if plan["regime"] == "cluster":
+                # the design's A/B: the same rows streamed twice
+                stream = cuda_awgn.regime_plan("stream", B, T)
+                with mock.patch.object(cuda_awgn, "launch_plan",
+                                       lambda B, T: stream):
+                    S.require_awgn_close(f"{label}, stream regime", x,
+                                         W.add_noise_with(x, S.SNR_DB, z),
+                                         W.add_noise_with_plain(
+                                             x, S.SNR_DB, z))
+                    extra["stream_regime_ms"] = statistics.median(
+                        S.profile_busy_ms(
+                            lambda: W.add_noise_with(x, S.SNR_DB, z),
+                            reps, rows=0) for _ in range(args.pairs))
+            rows.append(row(
+                "awgn_active", f"{label}, T={T}", B, earlier, current,
+                bound_ms, by, bound4_ms=S.awgn_bound(B, T, 4)[0], **extra,
+                registers_spills={who: u and u.get(
+                    "stream" if plan["regime"] == "stream" else "rows")
+                    for who, u in regs.items()},
+                shared_bytes={"earlier": None,
+                              "current": plan["shared_bytes"]},
+                awgn_plan=plan))
+            del x, z
+            torch.cuda.empty_cache()
+
     for r in rows:
         regs = "".join(
             f", {who}: {u[0]} registers, spills {u[1]}/{u[2]} B, "
             f"{r['shared_bytes'][who]} shared B"
             for who, u in r.get("registers_spills", {}).items() if u)
+        if "awgn_plan" in r:
+            regs += (", current plan: {regime}, {parts} parts of {slice} "
+                     "samples, {threads} threads".format(**r["awgn_plan"])
+                     + f", 4-pass bound {r['bound4_ms']!r} ms")
+            if "stream_regime_ms" in r:
+                regs += (f", the stream regime (4 passes) at this shape "
+                         f"{r['stream_regime_ms']!r} ms")
         if "plan" in r:
             regs += (", current plan: {tile} outputs an item, {items} items, "
                      "{blocks} blocks, {stages} stages".format(**r["plan"]))
