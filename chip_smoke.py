@@ -1542,7 +1542,6 @@ NVIS_CASES = [
 NVIS_LONG_CPU_LANES = 8
 HI_MOD, HI_RATE, HI_SNR_DB = Modulation.QAM256, CodeRate.R2_3, 30.0
 HI_SEED = 70
-DPSK_LEAD, DPSK_TAIL = 4800, 4000    # parallel/sweep.py:184-190
 DPSK_RATE = CodeRate.R1_4
 DPSK_CASES = [("medium", 0.0, 256), ("robust", -11.0, 64)]  # sweep.py:238-239
 DF_CFG = high_throughput()
@@ -1863,16 +1862,6 @@ def phase_pilot_high_order(dev: torch.device, card: str) -> None:
                 cox_run(COX_CFG, HI_MOD, HI_RATE, 1), rx_all, COX_BATCH, card)
 
 
-def dpsk_tx(cfg, info: torch.Tensor) -> torch.Tensor:
-    """run_point_dpsk's frames: lead zeros, preamble, one codeword, tail."""
-    B, dev = info.shape[0], info.device
-    cw = ldpc_ops.encode(get_code(DPSK_RATE), info)
-    pre = torch.from_numpy(DP.generate_preamble(cfg)).to(dev)
-    return torch.cat([torch.zeros((B, DPSK_LEAD), device=dev),
-                      pre.expand(B, pre.shape[0]), DP.modulate(cfg, cw),
-                      torch.zeros((B, DPSK_TAIL), device=dev)], dim=-1)
-
-
 def dpsk_run(cfg):
     """decode_dpsk_batch's stages with marks between them."""
     code = get_code(DPSK_RATE)
@@ -2018,7 +2007,7 @@ def phase_dpsk(dev: torch.device, card: str) -> tuple:
         cfg = getattr(DP, preset)()
         g = torch.Generator(device=dev).manual_seed(80 + i)
         info = random_info(g, B, k)
-        tx = dpsk_tx(cfg, info)
+        tx = DP.tx_dpsk_frame(cfg, DPSK_RATE, info)
         rx_all = [W.add_noise_active(tx, snr, g) for _ in range(2)]
         label = f"DPSK {preset} {snr} dB B={B} T={tx.shape[1]}"
         (out, ok, iters, det), launches = launches_of(

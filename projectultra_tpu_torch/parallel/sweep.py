@@ -254,9 +254,9 @@ def _dpsk_config(point: SweepPoint) -> DP.DPSKConfig:
 def build_dpsk(point: SweepPoint, seed: int = 42, device=None) -> Batch:
     cfg = _dpsk_config(point)
     info = _info(point, seed, resolve(device))
-    cw = ldpc_ops.encode(ldpc.get_code(point.rate), info)
-    return Batch(info, cw, _framed(DP.generate_preamble(cfg),
-                                   DP.modulate(cfg, cw)))
+    frame, cw = DP.tx_dpsk_frame(cfg, point.rate, info, LEAD, TAIL,
+                                 with_codeword=True)
+    return Batch(info, cw, frame)
 
 
 def lanes_dpsk(point: SweepPoint, rx: torch.Tensor, batch: Batch) -> Lanes:
@@ -266,10 +266,8 @@ def lanes_dpsk(point: SweepPoint, rx: torch.Tensor, batch: Batch) -> Lanes:
     cfg = _dpsk_config(point)
     code = ldpc.get_code(point.rate)
     found, ds, cfo, ipo, prev = DP.find_preamble(cfg, rx)
-    n_sym = -(-code.n // cfg.bits_per_symbol)
-    span = chirp_mod.frame_spans(rx, ds, n_sym * cfg.samples_per_symbol)
-    llrs = DP.demodulate_soft(cfg, span, prev, cfo, ipo)
-    return _lanes(code, llrs[:, :code.n].contiguous(), batch, found, cfo)
+    llrs = DP.demodulate_detected(cfg, point.rate, rx, ds, prev, cfo, ipo)
+    return _lanes(code, llrs, batch, found, cfo)
 
 
 def receive_dpsk(point: SweepPoint, rx: torch.Tensor,

@@ -15,9 +15,12 @@ v*45+22.5 deg, raised-cosine pulse shaping on data symbols only, preamble
 at full amplitude with continuous carrier phase, confidence =
 min(10*|diff|, 5), sin-based LLRs (dpsk.hpp:1000-1053).
 
-``decode_dpsk_batch`` is the device part of the JAX sweep's DPSK point
-(parallel/sweep.py:172-209): find, cut each row at its data start, soft
-demodulate, LDPC decode.
+``tx_dpsk_frame`` builds the sweep's DPSK frames on the device (encode,
+preamble, ``modulate``, lead and tail zeros); ``decode_dpsk_batch`` is the
+device part of the JAX sweep's DPSK point (parallel/sweep.py:172-209):
+find, cut each row at its data start, soft demodulate, LDPC decode.  Their
+stages are program spans (``utils/metrics.span``): ``dpsk.tx``,
+``dpsk.rx``, and inside it ``dpsk.find`` and ``dpsk.demodulate``.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from ..ops import ldpc as ldpc_ops
 from ..ops.dpsk_score import dpsk_score
 from ..ops.sc_windows import window_sum
 from ..sync.chirp import frame_spans
+from ..utils import metrics
 
 BARKER13 = np.array([1, 1, 1, 1, 1, -1, -1, 1, 1, -1, 1, -1, 1], np.int32)
 PREAMBLE_REPEATS = 3
@@ -188,8 +192,8 @@ class _Tables:
         k = min(10, len(expected))
         self.exp_ph = on(np.where(expected[:k] > 0, 0.0, np.pi)
                          .astype(np.float32))
-        self.tmpl6 = on(generate_preamble(cfg)[:REFINE_SYMBOLS
-                                                * cfg.samples_per_symbol])
+        self.preamble = on(generate_preamble(cfg))
+        self.tmpl6 = self.preamble[:REFINE_SYMBOLS * cfg.samples_per_symbol]
 
 
 @functools.lru_cache(maxsize=None)
@@ -246,6 +250,32 @@ def modulate(cfg: DPSKConfig, bits: torch.Tensor,
     out = tb.env[None, None, :] * torch.cos(tb.phase[None, None, :]
                                             + theta[:, :, None])
     return out.reshape(B, S * cfg.samples_per_symbol)
+
+
+def frame_samples(cfg: DPSKConfig, rate: CodeRate, lead: int = 4800,
+                  tail: int = 4000) -> int:
+    """T of ``tx_dpsk_frame``: 287,584 for ``medium`` at R1/4."""
+    n_sym = -(-ldpc_codes.get_code(rate).n // cfg.bits_per_symbol)
+    return lead + cfg.preamble_samples + n_sym * cfg.samples_per_symbol \
+        + tail
+
+
+def tx_dpsk_frame(cfg: DPSKConfig, rate: CodeRate, info: torch.Tensor,
+                  lead: int = 4800, tail: int = 4000,
+                  with_codeword: bool = False):
+    """[B, k] info bits -> [B, T] float32 frames as the sweep's DPSK point
+    lays them out: [lead zeros][Barker-13x3 preamble][one LDPC codeword,
+    ``modulate``d][tail zeros], on the info bits' device.  With
+    ``with_codeword`` the [B, n] float32 codewords follow the frames."""
+    with metrics.span("dpsk.tx", info):
+        B, dev = info.shape[0], info.device
+        code = ldpc_codes.get_code(rate)
+        cw = ldpc_ops.encode_with(ldpc_ops.graph_for(code, dev), info)
+        pre = _tables_on(cfg, dev).preamble
+        frame = torch.cat([torch.zeros((B, lead), device=dev),
+                           pre.expand(B, pre.shape[0]), modulate(cfg, cw),
+                           torch.zeros((B, tail), device=dev)], dim=-1)
+        return (frame, cw) if with_codeword else frame
 
 
 # ---------------------------------------------------------------------------
@@ -373,105 +403,121 @@ def find_preamble(cfg: DPSKConfig, samples: torch.Tensor,
 
     Returns (found [B] bool, data_start [B] int32, cfo_hz [B] f32,
     initial_phase_offset [B] f32, prev_symbol [B] complex64)."""
-    B, T = samples.shape
-    dev = samples.device
-    L = cfg.samples_per_symbol
-    n_sym = cfg.preamble_symbols
-    pre_n = cfg.preamble_samples
-    tb = _tables_on(cfg, dev)
-    n_fft = 1 << (T - 1).bit_length()
-    Tf, T6 = _filters_on(cfg, n_fft, dev)
+    with metrics.span("dpsk.find", samples):
+        B, T = samples.shape
+        dev = samples.device
+        L = cfg.samples_per_symbol
+        n_sym = cfg.preamble_symbols
+        pre_n = cfg.preamble_samples
+        tb = _tables_on(cfg, dev)
+        n_fft = 1 << (T - 1).bit_length()
+        Tf, T6 = _filters_on(cfg, n_fft, dev)
 
-    X = torch.fft.fft(samples.to(torch.complex64), n=n_fft, dim=-1)
-    corr_all = torch.fft.ifft(X * Tf, dim=-1)[:, :T - L + 1] / L
-    n_corr = corr_all.shape[-1]
+        X = torch.fft.fft(samples.to(torch.complex64), n=n_fft, dim=-1)
+        corr_all = torch.fft.ifft(X * Tf, dim=-1)[:, :T - L + 1] / L
+        n_corr = corr_all.shape[-1]
 
-    # Differential pattern score (computeDifferentialScore,
-    # dpsk.hpp:487-546) at offsets o < O: symbol j of offset o is
-    # corr_all[o + j*L] (ops/dpsk_score.py; a kernel on the card).
-    O = min(max_search_symbols * L, T - pre_n)
-    score = dpsk_score(corr_all, L, n_sym, O, EXPECTED_SIGNS,
-                       MIN_SYMBOL_ENERGY)
-    offs = torch.arange(O, device=dev)
-    vl = None
-    if valid_len is not None:
-        vl = torch.as_tensor(valid_len, device=dev).to(torch.int64) \
-            .reshape(-1, 1)
-        score = torch.where(offs[None, :] + pre_n <= vl, score, 0.0)
+        # Differential pattern score (computeDifferentialScore,
+        # dpsk.hpp:487-546) at offsets o < O: symbol j of offset o is
+        # corr_all[o + j*L] (ops/dpsk_score.py; a kernel on the card).
+        O = min(max_search_symbols * L, T - pre_n)
+        score = dpsk_score(corr_all, L, n_sym, O, EXPECTED_SIGNS,
+                           MIN_SYMBOL_ENERGY)
+        offs = torch.arange(O, device=dev)
+        vl = None
+        if valid_len is not None:
+            vl = torch.as_tensor(valid_len, device=dev).to(torch.int64) \
+                .reshape(-1, 1)
+            score = torch.where(offs[None, :] + pre_n <= vl, score, 0.0)
 
-    gmax = score.amax(-1)
-    global_avg = score[:, ::L].mean(-1)
-    rel = torch.arange(-L, L + 1, device=dev)
+        gmax = score.amax(-1)
+        global_avg = score[:, ::L].mean(-1)
+        rel = torch.arange(-L, L + 1, device=dev)
 
-    def pick(x, idx):
-        return x.gather(1, idx[:, None])[:, 0]
+        def pick(x, idx):
+            return x.gather(1, idx[:, None])[:, 0]
 
-    def resolve(strong):
-        first = _first_true(strong)
-        widx = torch.clamp(first[:, None] + rel[None, :], 0, O - 1)
-        b = pick(widx, torch.argmax(score.gather(1, widx), dim=-1))
-        bs = pick(score, b)
-        f = strong.any(-1) & (bs >= DETECTION_THRESHOLD) \
-            & (bs >= global_avg * GLOBAL_OUTLIER_RATIO)
-        return f, b
+        def resolve(strong):
+            first = _first_true(strong)
+            widx = torch.clamp(first[:, None] + rel[None, :], 0, O - 1)
+            b = pick(widx, torch.argmax(score.gather(1, widx), dim=-1))
+            bs = pick(score, b)
+            f = strong.any(-1) & (bs >= DETECTION_THRESHOLD) \
+                & (bs >= global_avg * GLOBAL_OUTLIER_RATIO)
+            return f, b
 
-    def shifted(k):
-        # score at offset o+k; out of range reads -1 (never dominates).
-        return torch.cat([score[:, k:], torch.full((B, min(k, O)), -1.0,
-                                                   device=dev)], dim=-1)[:, :O]
+        def shifted(k):
+            # score at offset o+k; out of range reads -1 (never dominates).
+            return torch.cat([score[:, k:], torch.full((B, min(k, O)), -1.0,
+                                                       device=dev)], dim=-1)[:, :O]
 
-    n13 = 13 * L
-    dominated = (score < shifted(n13)) | (score < shifted(2 * n13))
-    found_a, best_a = resolve((score >= DETECTION_THRESHOLD) & ~dominated)
-    found_b, best_b = resolve(
-        score >= torch.clamp(0.85 * gmax[:, None], min=DETECTION_THRESHOLD))
-    best = torch.where(found_a, best_a, best_b)
-    found = found_a | found_b
+        n13 = 13 * L
+        dominated = (score < shifted(n13)) | (score < shifted(2 * n13))
+        found_a, best_a = resolve((score >= DETECTION_THRESHOLD) & ~dominated)
+        found_b, best_b = resolve(
+            score >= torch.clamp(0.85 * gmax[:, None], min=DETECTION_THRESHOLD))
+        best = torch.where(found_a, best_a, best_b)
+        found = found_a | found_b
 
-    # CFO estimate from the matched differentials (estimateCFOTolerant).
-    sy = corr_all.gather(1, best[:, None]
-                         + L * torch.arange(n_sym, device=dev)[None, :])
-    d = sy[:, 1:] * sy[:, :-1].conj()
-    dmag = d.abs()
-    dn = torch.where(dmag > 1e-30, d / torch.clamp(dmag, min=1e-30), 0.0)
-    csum = (dn * tb.expected).sum(-1)
-    cfo = -torch.angle(csum) / (TWO_PI * (L / cfg.sample_rate))
+        # CFO estimate from the matched differentials (estimateCFOTolerant).
+        sy = corr_all.gather(1, best[:, None]
+                             + L * torch.arange(n_sym, device=dev)[None, :])
+        d = sy[:, 1:] * sy[:, :-1].conj()
+        dmag = d.abs()
+        dn = torch.where(dmag > 1e-30, d / torch.clamp(dmag, min=1e-30), 0.0)
+        csum = (dn * tb.expected).sum(-1)
+        cfo = -torch.angle(csum) / (TWO_PI * (L / cfg.sample_rate))
 
-    # Initial phase offset from the first 10 differentials.
-    k = tb.exp_ph.shape[0]
-    cfo_phase = (TWO_PI * cfo * L / cfg.sample_rate)[:, None]
-    ipo = _wrap(torch.angle(dn[:, :k]) - cfo_phase - tb.exp_ph).mean(-1)
+        # Initial phase offset from the first 10 differentials.
+        k = tb.exp_ph.shape[0]
+        cfo_phase = (TWO_PI * cfo * L / cfg.sample_rate)[:, None]
+        ipo = _wrap(torch.angle(dn[:, :k]) - cfo_phase - tb.exp_ph).mean(-1)
 
-    # Matched-filter timing refinement near zero CFO
-    # (refineTimingWithMatchedFilter, dpsk.hpp:709-770): normalized real
-    # correlation against the first 6 preamble symbols within +-1 symbol
-    # of the coarse peak; block-stable window energies.
-    n6 = REFINE_SYMBOLS * L
-    t6 = _t6_energy(cfg)
-    e6 = window_sum(samples * samples, n6)               # [B, T-n6+1]
-    pos = best[:, None] + rel[None, :]                   # [B, 2L+1]
-    ok = (pos >= 0) & (pos < e6.shape[-1])
-    if vl is not None:
-        ok = ok & (pos + pre_n <= vl)
-    posc = torch.clamp(pos, 0, e6.shape[-1] - 1)
-    mf = torch.fft.ifft(X * T6, dim=-1).real.gather(1, posc)
-    ew = e6.gather(1, posc) * t6
-    nmf = torch.where(ew > 1e-20, mf.abs() / torch.sqrt(
-        torch.clamp(ew, min=1e-30)), 0.0)
-    nmf = torch.where(ok, nmf, -1.0)
-    refined = torch.where(ok.any(-1),
-                          pick(posc, torch.argmax(nmf, dim=-1)), 0)
-    best = torch.where(cfo.abs() < 0.5, refined, best)
+        # Matched-filter timing refinement near zero CFO
+        # (refineTimingWithMatchedFilter, dpsk.hpp:709-770): normalized real
+        # correlation against the first 6 preamble symbols within +-1 symbol
+        # of the coarse peak; block-stable window energies.
+        n6 = REFINE_SYMBOLS * L
+        t6 = _t6_energy(cfg)
+        e6 = window_sum(samples * samples, n6)               # [B, T-n6+1]
+        pos = best[:, None] + rel[None, :]                   # [B, 2L+1]
+        ok = (pos >= 0) & (pos < e6.shape[-1])
+        if vl is not None:
+            ok = ok & (pos + pre_n <= vl)
+        posc = torch.clamp(pos, 0, e6.shape[-1] - 1)
+        mf = torch.fft.ifft(X * T6, dim=-1).real.gather(1, posc)
+        ew = e6.gather(1, posc) * t6
+        nmf = torch.where(ew > 1e-20, mf.abs() / torch.sqrt(
+            torch.clamp(ew, min=1e-30)), 0.0)
+        nmf = torch.where(ok, nmf, -1.0)
+        refined = torch.where(ok.any(-1),
+                              pick(posc, torch.argmax(nmf, dim=-1)), 0)
+        best = torch.where(cfo.abs() < 0.5, refined, best)
 
-    # Re-gather the reference symbol (last preamble symbol) at the refined
-    # position (findPreamble sets prev_symbol_ there, dpsk.hpp:466-472).
-    prev_symbol = pick(corr_all, torch.clamp(best + (n_sym - 1) * L, 0,
-                                             n_corr - 1))
-    return (found, (best + pre_n).to(torch.int32), cfo, ipo, prev_symbol)
+        # Re-gather the reference symbol (last preamble symbol) at the refined
+        # position (findPreamble sets prev_symbol_ there, dpsk.hpp:466-472).
+        prev_symbol = pick(corr_all, torch.clamp(best + (n_sym - 1) * L, 0,
+                                                 n_corr - 1))
+        return (found, (best + pre_n).to(torch.int32), cfo, ipo, prev_symbol)
+
+
+def demodulate_detected(cfg: DPSKConfig, rate: CodeRate,
+                        samples: torch.Tensor, data_start: torch.Tensor,
+                        prev: torch.Tensor, cfo_hz: torch.Tensor,
+                        initial_phase_offset: torch.Tensor) -> torch.Tensor:
+    """[B, T] buffers -> the decoder's input LLRs [B, n]: each row cut at
+    its detected data start (clipped into the buffer), then
+    ``demodulate_soft`` at its detected CFO and phase."""
+    with metrics.span("dpsk.demodulate", samples):
+        n = ldpc_codes.get_code(rate).n
+        n_sym = -(-n // cfg.bits_per_symbol)
+        span = frame_spans(samples, data_start, n_sym * cfg.samples_per_symbol)
+        return demodulate_soft(cfg, span, prev, cfo_hz,
+                               initial_phase_offset)[:, :n].contiguous()
 
 
 def decode_dpsk_batch(cfg: DPSKConfig, rate: CodeRate,
-                      samples: torch.Tensor):
+                      samples: torch.Tensor, with_llrs: bool = False):
     """The DPSK receiver step on [B, T] buffers that each hold one frame
     of one codeword at an unknown position (parallel/sweep.py:194-199):
     ``find_preamble`` -> each row cut at its own data start (clipped into
@@ -479,16 +525,16 @@ def decode_dpsk_batch(cfg: DPSKConfig, rate: CodeRate,
     LDPC decode.  Nothing is read to the host.
 
     Returns (info [B, k] uint8, ok [B] bool (decoded AND found),
-    iters [B] int32, det dict of find_preamble's outputs)."""
-    code = ldpc_codes.get_code(rate)
-    found, ds, cfo, ipo, prev = find_preamble(cfg, samples)
-    n_sym = -(-code.n // cfg.bits_per_symbol)
-    span = frame_spans(samples, ds, n_sym * cfg.samples_per_symbol)
-    llrs = demodulate_soft(cfg, span, prev, cfo, ipo)
-    graph = ldpc_ops.graph_for(code, samples.device)
-    llr_total, ok, iters = ldpc_ops.decode_totals(
-        graph, llrs[:, :code.n].contiguous())
-    info = (llr_total[:, :code.k] < 0).to(torch.uint8)
-    det = {"found": found, "data_start": ds, "cfo_hz": cfo,
-           "initial_phase_offset": ipo, "prev_symbol": prev}
-    return info, ok & found, iters, det
+    iters [B] int32, det dict of find_preamble's outputs), and with
+    ``with_llrs`` the decoder's input LLRs [B, n] last."""
+    with metrics.span("dpsk.rx", samples):
+        code = ldpc_codes.get_code(rate)
+        found, ds, cfo, ipo, prev = find_preamble(cfg, samples)
+        llrs = demodulate_detected(cfg, rate, samples, ds, prev, cfo, ipo)
+        graph = ldpc_ops.graph_for(code, samples.device)
+        llr_total, ok, iters = ldpc_ops.decode_totals(graph, llrs)
+        info = (llr_total[:, :code.k] < 0).to(torch.uint8)
+        det = {"found": found, "data_start": ds, "cfo_hz": cfo,
+               "initial_phase_offset": ipo, "prev_symbol": prev}
+        out = (info, ok & found, iters, det)
+        return (*out, llrs) if with_llrs else out

@@ -70,7 +70,9 @@ tests' shapes, a strided view, the DPSK path's shapes (``medium`` B = 256,
 the card through one launch, found and data_start equal to the CPU port,
 every output bit-equal to the card's plain path, and no synchronisation;
 launches counted on ``find_preamble``, ``decode_dpsk_batch`` and the
-engine's DPSK search.
+engine's DPSK search; the DPSK cell's step (``tx_dpsk_frame``, the
+channel, ``decode_dpsk_batch``) with one score, one LDPC and one AWGN
+launch and no synchronisation, and its entry's six spans on the card.
 
 The streaming engine: ``ModemEngine()`` takes the card; the reference
 CLI's five files streamed through it give the CPU engine's events and
@@ -122,7 +124,8 @@ The AWGN channel kernel (``csrc/awgn_active.cu``) against
 and -inf exactly where the plain version has them, every finite output
 within 1e-5 of std * |n| plus one ulp of the output (the two sum a frame's
 power in other orders), two runs bitwise equal, one launch a call, at the
-cells' shapes (16,384 x 7,332, 2,048 x 18,856, 2,048 x 83,808), 1-D
+cells' shapes (16,384 x 7,332, 2,048 x 18,856, 2,048 x 83,808 and the
+DPSK cell's 256 x 287,584, the stream regime on a timed path), 1-D
 buffers of 262,144 and 2,000,000 samples, T = 1 (bit for bit) and 7,
 empty batches, leading axes, row- and column-strided views, per-frame SNRs
 on the card, zero and sub-threshold rows, NaN and infinite samples and an
@@ -1409,11 +1412,7 @@ def _dpsk_buffers(dev, preset, snr_db, B, seed=3):
     g = torch.Generator(device=dev).manual_seed(seed)
     info = torch.randint(0, 2, (B, 162), generator=g, device=dev,
                          dtype=torch.uint8)
-    cw = T.encode(ldpc.get_code(CodeRate.R1_4), info)
-    pre = torch.from_numpy(TD.generate_preamble(cfg)).to(dev)
-    tx = torch.cat([torch.zeros((B, 4800), device=dev), pre.expand(B, -1),
-                    TD.modulate(cfg, cw), torch.zeros((B, 4000), device=dev)],
-                   dim=-1)
+    tx = TD.tx_dpsk_frame(cfg, CodeRate.R1_4, info)
     return cfg, info, TW.add_noise_active(tx, snr_db, g)
 
 
@@ -1453,6 +1452,36 @@ def test_decode_dpsk_batch_goes_through_both_kernels(dev):
     assert cuda_dpsk.launches == before[0] + 1
     assert cuda_ldpc.launches > before[1]
     assert bool(ok.all()) and torch.equal(out, info)
+
+
+def test_dpsk_step_never_synchronises(dev):
+    """tx_dpsk_frame -> add_noise_with -> decode_dpsk_batch, the DPSK
+    cell's step, enqueue without a host-device synchronisation once the
+    per-device tables exist: one score, one LDPC and one AWGN launch a
+    step, and every frame decoded."""
+    cfg, B = TD.medium(), 16
+    g = torch.Generator(device=dev).manual_seed(41)
+    info = torch.randint(0, 2, (B, 162), generator=g, device=dev,
+                         dtype=torch.float32)
+    noise = torch.randn((B, TD.frame_samples(cfg, CodeRate.R1_4)),
+                        generator=g, device=dev)
+
+    def step():
+        tx = TD.tx_dpsk_frame(cfg, CodeRate.R1_4, info)
+        rx = TW.add_noise_with(tx, 0.0, noise)
+        return TD.decode_dpsk_batch(cfg, CodeRate.R1_4, rx)
+
+    step()
+    torch.cuda.synchronize()
+    before = (cuda_dpsk.launches, cuda_ldpc.launches, cuda_awgn.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, ok, _, _ = step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (cuda_dpsk.launches, cuda_ldpc.launches, cuda_awgn.launches) \
+        == tuple(n + 1 for n in before)
+    assert bool(ok.all()) and torch.equal(out, info.to(torch.uint8))
 
 
 def test_find_preamble_never_synchronises(dev):
@@ -1507,7 +1536,8 @@ def test_engine_dpsk_search_goes_through_the_kernel(dev):
 
 
 TRACED_ENTRIES = {"presynced": ("ofdm_chirp-presynced-17db", 256, 4),
-                  "acquired": ("mcdpsk_l10-chirp-acquire-5db-b2048", 64, 7)}
+                  "acquired": ("mcdpsk_l10-chirp-acquire-5db-b2048", 64, 7),
+                  "dpsk": ("dpsk_medium-acquire-0db-b256", 16, 6)}
 
 
 @pytest.mark.parametrize("path", sorted(TRACED_ENTRIES))
@@ -2067,6 +2097,7 @@ def _assert_awgn_equals_plain(x, snr_db, z):
     (16384, 7332, 0, 0),       # the presynced cells
     (2048, 18856, 1504, 1024),  # the Cox cell: zeros before and after
     (2048, 83808, 0, 0),       # the acquired cell
+    (256, 287584, 4800, 4000),  # the DPSK cell: the stream regime
 ])
 def test_awgn_kernel_at_the_cells(dev, B, T, lead, tail):
     x, z = _awgn_inputs(dev, (B, T), B + T, lead, tail)
