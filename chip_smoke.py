@@ -1722,7 +1722,8 @@ def cox_llrs(cfg, mod, rate, ncw, rx) -> torch.Tensor:
 
 def phase_nvis(dev: torch.device, card: str) -> None:
     """NVIS coherent cases (a)-(c) through decode_cox_batch, the LDPC
-    kernel against plain on their LLRs, the window kernel at half = 512."""
+    kernel against plain on their LLRs, the window kernel at half = 512;
+    each case's path timing replays the refined path's CUDA graph."""
     for i, (name, mod, rate, snr, ncw, B) in enumerate(NVIS_CASES):
         k = get_code(rate).k
         g = torch.Generator(device=dev).manual_seed(60 + i)
@@ -1785,8 +1786,14 @@ def phase_nvis(dev: torch.device, card: str) -> None:
         llrs = cox_llrs(NVIS_CFG, mod, rate, ncw, rx_all[0])
         ldpc_at_new_shape(f"NVIS ({name}) {GOLDEN_NAMES[rate]} {snr} dB",
                           rate, llrs, card)
+        captures, replays = D.refined_captures, D.refined_replays
         path_timing(f"NVIS ({name}) path", cox_run(NVIS_CFG, mod, rate, ncw),
                     rx_all, B, card)
+        print(f"NVIS ({name}) path: refined graph captures "
+              f"{D.refined_captures - captures}, replays "
+              f"{D.refined_replays - replays}", flush=True)
+        require(D.refined_replays > replays,
+                f"NVIS ({name}) path did not replay the refined path's graph")
         if i == 1:
             phase_windows_half512(rx_all[0], card)
 

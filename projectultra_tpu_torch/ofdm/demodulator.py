@@ -21,7 +21,9 @@ Three receivers over the same per-symbol blocks:
 * the coherent refined path of no-pilot plans (``_demod_coherent_refined``):
   every symbol's used bins, a dual decision-directed PLL (common phase and
   timing slope, a Python loop over the symbols), three alternating rank-1
-  LS refits of the channel, and per-carrier residual noise.
+  LS refits of the channel, and per-carrier residual noise.  On a card it
+  too runs as one replay of a CUDA graph captured once per shape, not as
+  ~1,500 launches a call.
 
 Coherent modulations run on the half-scaled analytic signal
 (``maybe_analytic``); QAM64/QAM256 use the folded-Tukey analysis window,
@@ -1026,15 +1028,91 @@ def _scan_eager(config: ModemConfig, mod: Modulation, state: DemodState,
     return state, demap_ops.demap(mod, eq, nv_eff).reshape(B, -1)
 
 
+#: Captures and replays of the refined path's CUDA graphs
+#: (``_demod_coherent_refined`` on a card), counted as the scan's are.
+refined_captures = 0
+refined_replays = 0
+#: Refined graphs kept, the least recently used dropped first, and shapes
+#: seen once, the oldest dropped first (as the scan's).
+REFINED_GRAPHS, REFINED_SEEN = 8, 64
+_refined_graphs = cuda_graphs.Cache(REFINED_GRAPHS, REFINED_SEEN)
+
+
+def _refined_windows(mod: Modulation, front: str,
+                     taper: bool | None) -> tuple[bool, bool]:
+    """(image_cancel, taper) of the refined path: ``taper`` as the caller
+    chose it (default: Tukey unless ``front == "real"``), image
+    cancellation for QAM64/QAM256 with ``QAM256_RX == "real"``."""
+    if taper is None:
+        taper = front != "real"
+    return _hi_order(mod) and QAM256_RX == "real" and front != "real", taper
+
+
+def _refined_key(config: ModemConfig, mod: Modulation, data: torch.Tensor,
+                 t0_base: int, front: str, n_bits: int | None,
+                 taper: bool | None, bins_w) -> tuple:
+    """The key of the refined path's graph: everything that fixes its
+    operation sequence (the windows as resolved, the data's shape, dtype
+    and device, whether the caller holds the window rows)."""
+    ic, taper = _refined_windows(mod, front, taper)
+    B, S, L = data.shape
+    return (config, mod, front, ic, taper, n_bits, B, S, L, int(t0_base),
+            bins_w is not None, data.dtype, data.device)
+
+
 def _demod_coherent_refined(config: ModemConfig, mod: Modulation,
                             state: DemodState, data: torch.Tensor,
                             t0_base: int, front: str = "analytic",
                             n_bits: int | None = None,
                             taper: bool | None = None,
                             bins_w=None) -> torch.Tensor:
+    """The refined path over [B, S, L] data symbols starting at mixer time
+    ``t0_base``: LLRs [B, S*Cd*bits].  On the CPU it is the Python loops of
+    ``_refined_eager``.  On a card, from the second call of a shape on, it
+    is one replay of those loops captured as a CUDA graph
+    (``ops/cuda_graphs.py``), which runs the same kernels in the same
+    order, so its LLRs are the loops' bit for bit; the state, the data and
+    the caller's window rows are copied into the graph's inputs, and its
+    LLRs cloned out.  A shape's first call runs the loops.  Nothing is
+    read to the host."""
+    with metrics.span("ofdm.refined", data):
+        if data.device.type != "cuda":
+            return _refined_eager(config, mod, state, data, t0_base, front,
+                                  n_bits, taper, bins_w)
+        global refined_replays
+        key = _refined_key(config, mod, data, t0_base, front, n_bits, taper,
+                           bins_w)
+        n = len(state)
+
+        def run(*x):
+            return _refined_eager(config, mod, DemodState(*x[:n]), x[n],
+                                  t0_base, front, n_bits, taper,
+                                  x[n + 1:] or None)
+
+        inputs = (*state, data, *(bins_w or ()))
+
+        def capture():
+            global refined_captures
+            refined_captures += 1
+            return cuda_graphs.Captured(run, inputs)
+
+        graph = _refined_graphs.get(key, capture)
+        if graph is None:
+            return _refined_eager(config, mod, state, data, t0_base, front,
+                                  n_bits, taper, bins_w)
+        refined_replays += 1
+        return graph(inputs).clone()
+
+
+def _refined_eager(config: ModemConfig, mod: Modulation, state: DemodState,
+                   data: torch.Tensor, t0_base: int, front: str = "analytic",
+                   n_bits: int | None = None, taper: bool | None = None,
+                   bins_w=None) -> torch.Tensor:
     """Two-pass no-pilot coherent demod with decision-directed channel
     refinement (demodulator.py:787-940 of the JAX package): [B, S, L] data
-    symbols -> LLRs [B, S*Cd*bits].
+    symbols -> LLRs [B, S*Cd*bits], each step a fixed sequence of tensor
+    operations (``_demod_coherent_refined`` on the CPU, and what its CUDA
+    graph captures).
 
     Every symbol's used bins (per-symbol ``to_baseband_fd``, a Python loop
     carrying the CFO phase), then a dual second-order decision-directed
@@ -1049,9 +1127,7 @@ def _demod_coherent_refined(config: ModemConfig, mod: Modulation,
     dev = data.device
     data_idx = _carrier_consts(config, dev)[0]
     Cd = data_idx.shape[0]
-    if taper is None:
-        taper = front != "real"
-    ic = _hi_order(mod) and QAM256_RX == "real" and front != "real"
+    ic, taper = _refined_windows(mod, front, taper)
 
     t = t0_base + torch.arange(S * L, dtype=torch.int32, device=dev)
     osc = mixer_ops.osc_int(config.center_freq, config.sample_rate,

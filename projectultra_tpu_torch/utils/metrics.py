@@ -8,10 +8,10 @@ its device trace uses ``torch.profiler``.
 
 ``span(name, on)`` marks a stage of the receive chains where the stage's
 function does its work (``noise.awgn``, ``ofdm.rx``, ``ofdm.demodulate``,
-``ofdm.scan``, ``ldpc.decode``, ``mcdpsk.tx``, ``mcdpsk.rx``,
-``chirp.detect``, ``chirp.decimate``, ``mcdpsk.demodulate``, ``cox.tx``,
-``cox.rx``, ``cox.detect``, ``dpsk.tx``, ``dpsk.rx``, ``dpsk.find``,
-``dpsk.demodulate``).  Outside ``tracing()`` a span
+``ofdm.scan``, ``ofdm.refined``, ``ldpc.decode``, ``mcdpsk.tx``,
+``mcdpsk.rx``, ``chirp.detect``, ``chirp.decimate``, ``mcdpsk.demodulate``,
+``cox.tx``, ``cox.rx``, ``cox.detect``, ``dpsk.tx``, ``dpsk.rx``,
+``dpsk.find``, ``dpsk.demodulate``).  Outside ``tracing()`` a span
 does nothing but test one module flag: no CUDA event, no profiler range,
 no record.  Inside it a span records its name, its parent, the batch id,
 its host interval and, for work on a card, a CUDA event at each end (on

@@ -101,6 +101,14 @@ The Cox TX's CUDA graph (``ofdm/pipeline.tx_cox_frame``) against its
 eager run, bit for bit, at B = 1, 7 and 2,048, and two replays in a row;
 the tracking kernel's launches counted at each replay of the scan.
 
+The refined path's CUDA graph (``ofdm/demodulator._demod_coherent_refined``
+on NVIS frames) against its eager loops, the LLRs bit for bit, at B = 1, 7
+and 2,048 on QAM32 R3/4 (8 codewords) and QAM256 R5/6 (the Tukey window);
+two replays in a row on different inputs; ``decode_cox_batch`` replaying
+it without a synchronisation; no capture inside a benchmark window of the
+NVIS cell, one replay a step; the NVIS entry's spans on the card; the LTS
+timing kernel at that cell's B = 2,048 x T = 33,000.
+
 The pilot-tracking kernel (``csrc/pilot_track.cu``) against the scan's
 PyTorch step on the same card tensors (DQPSK on the default pilot plan,
 B = 1, 7, 2,048): LLRs within 2e-3 and of the same sign, the tracked
@@ -2224,3 +2232,186 @@ def test_awgn_kernel_wrapper_checks_its_inputs(dev):
                  (x, torch.tensor([1.0, 2.0, 3.0]), z)):
         with pytest.raises(ValueError):
             cuda_awgn.add_noise_cuda(*args)
+
+
+# ---------------------------------------------------------------------------
+# The refined path (NVIS) as one CUDA graph replay
+# ---------------------------------------------------------------------------
+
+NVIS_CELL = "nvis_qam32-acquire-30db-cfo10-b2048"
+
+
+def _refined_inputs(dev, B, seed, mod=Modulation.QAM32, rate=CodeRate.R3_4,
+                    snr=30.0, ncw=8):
+    """The refined path's arguments on NVIS frames of ``ncw`` codewords at
+    a 10 Hz offset, cut at their detected first LTS as ``demodulate_span``
+    cuts them: (config, mod, state after the LTS estimate, data
+    [B, S, L], t0, front, n_bits, taper)."""
+    from projectultra_tpu_torch.ofdm import demodulator as TDM
+    cfg, _, rx = _nvis_buffers(dev, mod, rate, snr, B, ncw, seed=seed)
+    det = TSC.detect_preamble(cfg, rx)
+    plen = cfg.fft_size + cfg.cyclic_prefix
+    S = TP.num_data_symbols(cfg, mod, ncw)
+    span_len = 2 * plen + S * cfg.symbol_duration
+    starts = torch.clamp(det["lts_start"].to(torch.int64), 0,
+                         rx.shape[1] - span_len)
+    span = rx.gather(1, starts[:, None] + torch.arange(span_len, device=dev))
+    lts, data = TDM._span_segments(cfg, mod, span, 2, S, 0, 0, "analytic")
+    ic, taper = TDM._scan_windows(mod, "analytic")
+    state = TDM.init_state(cfg, B, det["cfo_hz"], 0.0, dev)
+    state = TDM.estimate_channel_from_lts(cfg, state, lts, t0_base=plen,
+                                          t0_stride=0, image_cancel=ic,
+                                          taper=taper)
+    return (cfg, mod, state, data, 2 * plen, "analytic",
+            ldpc.BLOCK_LENGTH * ncw, taper)
+
+
+def _fresh_refined_cache():
+    from projectultra_tpu_torch.ofdm import demodulator as TDM
+    TDM._refined_graphs.clear()
+    return TDM
+
+
+@pytest.mark.parametrize("B", [1, 7, 2048])
+@pytest.mark.parametrize("mod", [Modulation.QAM32, Modulation.QAM256])
+def test_refined_graph_replay_is_the_eager_loop(dev, mod, B):
+    """A shape's first call runs the eager loops; its second captures the
+    graph and replays it, its third replays it: each bit for bit the eager
+    loops' LLRs on the same card tensors (QAM32 R3/4 at 30 dB, the cell's
+    8 codewords; QAM256 R5/6 at 42 dB, the Tukey window)."""
+    if mod == Modulation.QAM32:
+        args = _refined_inputs(dev, B, seed=B + 3)
+    else:
+        args = _refined_inputs(dev, B, seed=B + 3, mod=mod,
+                               rate=CodeRate.R5_6, snr=42.0, ncw=1)
+    TDM = _fresh_refined_cache()
+    want = TDM._refined_eager(*args)
+    captures, replays = TDM.refined_captures, TDM.refined_replays
+    assert torch.equal(TDM._demod_coherent_refined(*args), want)
+    assert (TDM.refined_captures, TDM.refined_replays) == (captures, replays)
+    for n in (1, 2):
+        assert torch.equal(TDM._demod_coherent_refined(*args), want)
+        assert TDM.refined_replays == replays + n
+    assert TDM.refined_captures == captures + 1
+
+
+def test_refined_replays_in_a_row_keep_their_own_results(dev):
+    """Two replays of one graph on different inputs: each equals its own
+    eager result, and the second leaves the first's LLRs as they were."""
+    a = _refined_inputs(dev, 64, seed=1)
+    b = _refined_inputs(dev, 64, seed=2)
+    TDM = _fresh_refined_cache()
+    want_a, want_b = TDM._refined_eager(*a), TDM._refined_eager(*b)
+    TDM._demod_coherent_refined(*a)
+    replays = TDM.refined_replays
+    got_a = TDM._demod_coherent_refined(*a)
+    got_b = TDM._demod_coherent_refined(*b)
+    assert TDM.refined_replays == replays + 2
+    assert torch.equal(got_a, want_a) and torch.equal(got_b, want_b)
+    assert not torch.equal(got_a, got_b)
+
+
+def test_decode_cox_batch_replays_the_refined_graph(dev):
+    """decode_cox_batch on NVIS frames: the third call replays the refined
+    graph and gives the first call's bits, ok flags, iterations and LLRs
+    bit for bit, without a synchronisation."""
+    cfg, info, rx = _nvis_buffers(dev, Modulation.QAM32, CodeRate.R3_4, 30.0,
+                                  256, 8)
+    TDM = _fresh_refined_cache()
+
+    def step():
+        return TSC.decode_cox_batch(cfg, Modulation.QAM32, CodeRate.R3_4, rx,
+                                    n_codewords=8, with_llrs=True)
+
+    first = step()
+    step()
+    torch.cuda.synchronize()
+    replays = TDM.refined_replays
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert TDM.refined_replays == replays + 1
+    for a, b in zip(first[:3] + first[4:], again[:3] + again[4:]):
+        assert torch.equal(a, b)
+    assert bool(first[1].all()) and torch.equal(first[0], info)
+
+
+def test_no_refined_capture_in_a_benchmark_window(dev):
+    """The NVIS cell at a small batch as the benchmark runs it: the warm-up
+    captures the refined path and the TX, the window only replays them,
+    each kernel runs once a step, and the run is correct."""
+    import ast
+    import dataclasses
+    import time
+    from benchmark import harness
+    cell = harness.load_cell(NVIS_CELL)
+    cell.traffic = dataclasses.replace(cell.traffic, batch=128,
+                                       reference_rows=64, compare_span=5)
+    logs = []
+    line = harness.run(cell, 2**31 + 29, 1.0, False, dev, time.perf_counter(),
+                       logs.append)
+    window = next(m for m in logs if m.startswith("window:"))
+    launches = ast.literal_eval(window.split("kernel launches ", 1)[1])
+    steps = int(window.split()[1])
+    assert launches["refined_captures"] == launches["tx_captures"] == 0
+    assert launches["refined_replays"] == launches["tx_replays"] == steps
+    for kernel in ("sc_windows", "lts_timing", "awgn_active", "ldpc_minsum"):
+        assert launches[kernel] == steps, kernel
+    assert launches["ldpc_minsum_bf16"] == 0
+    assert line["correct"] is True
+
+
+def test_nvis_entry_spans_on_the_card(dev):
+    """One step of the NVIS entry at a small batch with the program's spans
+    on, after the refined path's first call and its capture: every span
+    records its CUDA events, no child's device ms exceed its parent's, and
+    the step (TX, CFO, channel, receive chain) never synchronises."""
+    import dataclasses
+    from benchmark import harness, traffic as BT
+    from projectultra_tpu_torch.utils import metrics
+    cell = harness.load_cell(NVIS_CELL)
+    mix = dataclasses.replace(cell.traffic, batch=64)
+    entry = cell.entry.Entry(cell.config, mix, dev)
+    info, noise = BT.inputs(mix, entry.k, entry.T, 2**31 + 19, 0, dev)
+    with entry.precision():
+        for _ in range(2):
+            out = entry.step(info, noise, harness.no_mark)
+        torch.cuda.synchronize()
+        with metrics.tracing() as rec:
+            rec.next_batch()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                again = entry.step(info, noise, harness.no_mark)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            spans = rec.drain()
+    torch.cuda.synchronize()
+    for key in ("tx", "rx", "bits", "ok", "iters", "llrs"):
+        assert torch.equal(again[key], out[key]), key
+    assert [s.name for s in spans] == ["cox.tx", "noise.awgn", "cox.rx",
+                                       "cox.detect", "cox.lts",
+                                       "ofdm.refined", "ldpc.decode"]
+    by_id = {s.id: s for s in spans}
+    for s in spans:
+        assert s.device_ms() > 0, s.name
+        if s.parent is not None:
+            assert s.device_ms() <= by_id[s.parent].device_ms(), s.name
+
+
+def test_lts_kernel_at_the_nvis_cell(dev, monkeypatch):
+    """The LTS timing kernel on the 1,120-sample template at the NVIS
+    cell's B = 2,048 x T = 33,000 against the plain FFT matched filter on
+    the same card tensors: every detection output equal but lts_corr,
+    within LTS_CORR_ATOL; every frame found."""
+    cfg, _, rx = _nvis_buffers(dev, Modulation.QAM32, CodeRate.R3_4, 30.0,
+                               2048, 8)
+    assert rx.shape == (2048, 33000)
+    before = cuda_lts.launches
+    det = TSC.detect_preamble(cfg, rx)
+    assert cuda_lts.launches == before + 1
+    _plain_lts(monkeypatch)
+    ref = TSC.detect_preamble(cfg, rx)
+    _assert_same_detection(det, ref)
+    assert det["found"].all()
